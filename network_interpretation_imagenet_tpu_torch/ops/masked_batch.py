@@ -1,0 +1,62 @@
+"""B1: the masked classifier batch, built in one kernel.
+
+Counterpart of the TPU kernel ``ops/pallas_masking.py:49``
+(``masked_batch_pallas``). :func:`masked_batch` launches
+``csrc/masked_batch.cu`` for CUDA tensors and takes :func:`masked_batch_plain`
+(window masks, multiply, cast) only for CPU tensors. Both are bit-identical:
+the product is f32 and rounds once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from network_interpretation_imagenet_tpu_torch.ops import _cuda_build, masking
+
+_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ENTRY = {torch.bfloat16: "masked_batch_bf16", torch.float32: "masked_batch_f32"}
+
+
+def masked_batch_plain(image, segments, firsts, width, out_dtype=torch.bfloat16):
+    """Plain PyTorch version: ``apply_masks(image, window_masks(...))`` cast to
+    ``out_dtype``."""
+    masks = masking.window_masks(segments, firsts, width)
+    return masking.apply_masks(image, masks).to(out_dtype)
+
+
+def masked_batch(image: torch.Tensor, segments: torch.Tensor, firsts: torch.Tensor,
+                 width: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """f32[H, W, C] image, int32[H, W] contiguous labels, int32[K] starts,
+    int width -> ``out_dtype``[K, H, W, C] (bf16 or f32), NHWC contiguous."""
+    if image.dim() != 3 or segments.shape != image.shape[:2] or firsts.dim() != 1:
+        raise ValueError(f"masked_batch: shapes image {tuple(image.shape)}, segments "
+                         f"{tuple(segments.shape)}, firsts {tuple(firsts.shape)}")
+    if image.device.type == "cpu":
+        return masked_batch_plain(image, segments, firsts, width, out_dtype)
+    for name, t, dtype in (("image", image, torch.float32),
+                           ("segments", segments, torch.int32),
+                           ("firsts", firsts, torch.int32)):
+        if t.device != image.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"masked_batch: {name} must be a contiguous {dtype} "
+                             f"tensor on {image.device}, got {t.dtype} on {t.device}")
+    if out_dtype not in _ENTRY:
+        raise ValueError(f"masked_batch: out_dtype {out_dtype} not supported")
+    h, w, c = image.shape
+    k = firsts.shape[0]
+    if not 0 < k <= 65535 or h * w * c >= 2**31:
+        raise ValueError(f"masked_batch: K={k} or H*W*C={h * w * c} out of range")
+    out = torch.empty((k, h, w, c), dtype=out_dtype, device=image.device)
+    lib = _cuda_build.library("masked_batch", {e: _SIG for e in _ENTRY.values()})
+    rc = getattr(lib, _ENTRY[out_dtype])(
+        _cuda_build.ptr(image), _cuda_build.ptr(segments), _cuda_build.ptr(firsts),
+        int(width), _cuda_build.ptr(out), k, h * w * c, c,
+        _cuda_build.stream_ptr(image.device))
+    _cuda_build.check(rc, "masked_batch")
+    masked_batch.launches += 1
+    return out
+
+
+masked_batch.launches = 0

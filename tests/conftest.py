@@ -114,7 +114,7 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         module = item.nodeid.split("::")[0].rsplit("/", 1)[-1]
         rel_id = item.nodeid.rsplit("/", 1)[-1]
-        tier = "fast" if module[:-3] in _FAST_MODULES else "slow"
+        tier = "fast" if module[:-3] in _FAST_MODULES or module.startswith("test_torch_") else "slow"
         if any(rel_id == p or rel_id.startswith(p + "[") for p in _FORCE_SLOW):
             tier = "slow"
         item.add_marker(getattr(pytest.mark, tier))

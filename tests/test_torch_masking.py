@@ -1,0 +1,101 @@
+"""Port vs JAX package: window masks, masking, window starts, and B1's plain
+version (``masked_batch``) against the XLA formulation and the Pallas kernel
+in interpret mode. All comparisons are bit-exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from network_interpretation_imagenet_tpu.ops import masking as jmask
+from network_interpretation_imagenet_tpu.ops.pallas_masking import (
+    masked_batch_pallas,
+    masked_batch_xla,
+)
+from network_interpretation_imagenet_tpu_torch.ops import masking
+from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+    masked_batch,
+    masked_batch_plain,
+)
+
+_DTYPES = [(jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)]
+
+
+def _case(rng, h=16, w=16, c=3, s=12):
+    img = rng.randn(h, w, c).astype(np.float32)
+    seg = rng.randint(0, s, (h, w)).astype(np.int32)
+    return img, seg
+
+
+def _f32(a):
+    return np.asarray(a, np.float32) if not isinstance(a, torch.Tensor) else a.float().numpy()
+
+
+@pytest.mark.parametrize("width", [4, np.array([1, 3, 5, 99], np.int32)])
+def test_window_masks_and_apply_match_jax(rng, width):
+    img, seg = _case(rng)
+    firsts = np.array([0, 3, 7, 11], np.int32)  # the last window runs past S=12
+    want = np.asarray(jmask.window_masks(jnp.asarray(seg), jnp.asarray(firsts), width))
+    got = masking.window_masks(torch.from_numpy(seg), firsts, width).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        masking.apply_masks(torch.from_numpy(img), torch.from_numpy(got)).numpy(),
+        np.asarray(jmask.apply_masks(jnp.asarray(img), jnp.asarray(want))))
+
+
+def test_sample_window_starts_host_matches_jax():
+    for seed, num, s, width in [(0, 100, 40, 16), (3, 7, 5, 4), (9, 32, 2, 1)]:
+        np.testing.assert_array_equal(
+            masking.sample_window_starts_host(seed, num, s, width),
+            jmask.sample_window_starts_host(seed, num, s, width))
+
+
+def test_sample_window_starts_range_and_determinism():
+    def draw(seed):
+        return masking.sample_window_starts(torch.Generator().manual_seed(seed), 500, 40, 16)
+
+    a = draw(0)
+    assert a.dtype == torch.int32 and a.shape == (500,)
+    assert int(a.min()) == 1 and int(a.max()) == 40 - 16  # inclusive range, both ends hit
+    assert torch.equal(a, draw(0)) and not torch.equal(a, draw(1))
+    tiny = masking.sample_window_starts(torch.Generator().manual_seed(0), 50, 3, 2)
+    assert set(tiny.tolist()) == {1}  # S - width < 1: guarded to [1, 1]
+
+
+@pytest.mark.parametrize("jdt,tdt", _DTYPES)
+def test_masked_batch_plain_matches_xla_and_pallas(rng, jdt, tdt):
+    img, seg = _case(rng)
+    firsts = np.array([0, 3, 7, 11], np.int32)
+    args = (jnp.asarray(img), jnp.asarray(seg), jnp.asarray(firsts), jnp.int32(4))
+    xla = masked_batch_xla(*args, out_dtype=jdt)
+    pallas = masked_batch_pallas(*args, out_dtype=jdt, interpret=True)
+    timg, tseg, tfirsts = (torch.from_numpy(a) for a in (img, seg, firsts))
+    plain = masked_batch_plain(timg, tseg, tfirsts, 4, tdt)
+    wrapped = masked_batch(timg, tseg, tfirsts, 4, tdt)  # CPU tensors: the plain version
+    assert plain.dtype == wrapped.dtype == tdt and plain.shape == (4, 16, 16, 3)
+    for got in (plain, wrapped):
+        np.testing.assert_array_equal(_f32(got), _f32(xla))
+        np.testing.assert_array_equal(_f32(got), _f32(pallas))
+
+
+@pytest.mark.parametrize("jdt,tdt", _DTYPES)
+def test_masked_batch_clipping_matches_pallas(rng, jdt, tdt):
+    img = rng.rand(8, 8, 1).astype(np.float32)
+    seg = (np.arange(64).reshape(8, 8) % 5).astype(np.int32)
+    firsts = np.array([4], np.int32)
+    want = masked_batch_pallas(jnp.asarray(img), jnp.asarray(seg), jnp.asarray(firsts),
+                               jnp.int32(99), out_dtype=jdt, interpret=True)
+    got = masked_batch(torch.from_numpy(img), torch.from_numpy(seg),
+                       torch.from_numpy(firsts), 99, tdt)
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+def test_masked_batch_cpu_does_not_count_launches(rng):
+    img, seg = _case(rng)
+    before = masked_batch.launches
+    masked_batch(torch.from_numpy(img), torch.from_numpy(seg),
+                 torch.tensor([1, 2], dtype=torch.int32), 3)
+    assert masked_batch.launches == before
+    with pytest.raises(ValueError):
+        masked_batch(torch.from_numpy(img), torch.from_numpy(seg[:4]),
+                     torch.tensor([1], dtype=torch.int32), 3)
