@@ -13,7 +13,10 @@ hand-written kernel against its plain PyTorch version on the card:
   3. B1 masked_batch vs its plain version, bf16 and f32, bit-exact;
   4. B2 bottleneck_chain vs its plain version at all four ResNet-101 stage
      shapes with the real block counts, block by block within bf16
-     tolerance (and f32 at two shapes);
+     tolerance, at B = 3 (ragged against every tile), 32 and 256 (and f32 at
+     two shapes); per stage at B=256 its time, TFLOP/s, share of its bound,
+     the floor of three launches per block and a bf16 cuDNN yardstick; the
+     built library's SASS must hold HGMMA (wgmma) instructions;
   5. the main path: Felzenszwalb -> predict_one -> random_window_saliency
      (1024 masks) -> localization_score, with the launch counters reset
      just before and read just after, then kernel-path vs plain-path
@@ -40,6 +43,7 @@ SEED = 0
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12   # HBM3 (NVIDIA data sheet)
 STAGES_101 = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 22), (7, 2048, 512, 2))
+B2_BATCHES = (3, 32, MASK_BATCH)
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
 PKG = "network_interpretation_imagenet_tpu_torch"
@@ -62,6 +66,50 @@ def time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps, prefix):
+    """Mean device milliseconds of the kernels whose symbol starts with
+    ``prefix``, over the last ``reps`` of ``reps + 1`` warm calls under
+    torch.profiler (a trace may lose its first kernel). For a kernel shorter
+    than its wrapper's host cost, back-to-back CUDA-event timing measures the
+    host instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    launches = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name),
+                      key=lambda e: e.time_range.start)
+    if len(launches) < reps:
+        raise AssertionError(f"profiler saw {len(launches)} {prefix} kernels in {reps + 1} calls")
+    return sum(e.device_time for e in launches[-reps:]) / reps / 1e3
+
+
+def conv_us(x, ws):
+    """Median device microseconds of each of a block's three B2 launches
+    (1x1 reduce, 3x3, 1x1 expand), from the second of two chain calls under
+    torch.profiler (a trace may lose its first kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            bottleneck_chain(x, ws)
+        torch.cuda.synchronize()
+    launches = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and "b2_conv" in e.name),
+                      key=lambda e: e.time_range.start)
+    times = [e.device_time for e in launches[-3 * (len(ws) // 6):]]  # 3 per block
+    return [float(np.median(times[i::3])) for i in range(3)] if times else [0.0] * 3
 
 
 def synthetic_image(seed, size=224):
@@ -95,6 +143,47 @@ def b2_weights(rng, c, p, n, dtype, device):
             ws += [torch.from_numpy(w).to(device, dtype).contiguous(),
                    torch.from_numpy(b).to(device)]
     return ws
+
+
+def b2_costs(h, c, p, n, batch):
+    """(operations, bytes, floor ms) of one chain call. The bytes count x read
+    and y written once, and the weights and biases once per block (the chain
+    bound). The floor charges each of a block's three convolutions
+    max(operations / peak, its own bytes / bandwidth): the least time of a
+    design that keeps three launches per block, with t1 and t2 in device
+    memory."""
+    m = batch * h * h
+    flops = 34 * m * p * p * n
+    nbytes = 2 * m * c * 2 + n * ((2 * c * p + 9 * p * p) * 2 + (2 * p + c) * 4)
+    convs = ((2 * m * c * p, (m * c + m * p + c * p) * 2 + 4 * p),                # 1x1 reduce
+             (18 * m * p * p, (2 * m * p + 9 * p * p) * 2 + 4 * p),                # 3x3
+             (2 * m * p * c, (m * p + 2 * m * c + p * c) * 2 + 4 * c))             # 1x1 expand
+    floor = n * sum(max(f / H100_BF16_FLOPS, b / H100_BYTES_PER_S) for f, b in convs) * 1e3
+    return flops, nbytes, floor
+
+
+def sass_hgmma(so_path):
+    """Counts the HGMMA (wgmma) instructions in a built library's SASS, with
+    the CUDA toolkit's cuobjdump or the copy Triton ships."""
+    import glob
+    import os
+    import shutil
+
+    tools = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    try:
+        import triton
+
+        tools += glob.glob(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                                        "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and os.path.isfile(t)), None)
+    if tool is None:
+        raise RuntimeError("no cuobjdump found for the SASS check")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def check_chain(x, ws, tol):
@@ -170,11 +259,16 @@ def device_breakdown(fn):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host ops: their kernels appear as device events of their own
-        group = ("B2 bottleneck_chain" if "conv_gemm" in e.key else
-                 "B1 masked_batch" if "masked_batch_kernel" in e.key else "other")
+        # The kernels' symbols carry their id as a prefix (b2_conv_wgmma, b2_conv_f32,
+        # b1_masked_batch), so a rename inside a family cannot move them into "other".
+        group = ("B2 bottleneck_chain" if "b2_conv" in e.key else
+                 "B1 masked_batch" if "b1_masked_batch" in e.key else "other")
         groups[group] += e.device_time_total / 1e3
         if group == "other":
             others[e.key[:60]] = others.get(e.key[:60], 0.0) + e.device_time_total / 1e3
+    if sum(groups.values()) > 0 and not (groups["B2 bottleneck_chain"] > 0
+                                         and groups["B1 masked_batch"] > 0):
+        raise AssertionError(f"profile: device time seen, but no B1 or B2 kernel in it: {groups}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     return wall, groups, top
 
@@ -236,6 +330,12 @@ def main() -> int:
             for line in f:
                 if "Used" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    raise AssertionError(f"{name}: ptxas spills registers: {line.strip()}")
+    hgmma = sass_hgmma(_cuda_build.so_path("bottleneck_chain"))
+    log(f"[build] bottleneck_chain SASS: {hgmma} HGMMA instructions")
+    if hgmma == 0:
+        raise AssertionError("B2's library holds no HGMMA: its bf16 kernels do not use wgmma")
 
     # 3. B1 against its plain version (K = the main path's chunk)
     rng = np.random.RandomState(SEED)
@@ -253,17 +353,21 @@ def main() -> int:
         want = masked_batch_plain(image, seg, firsts, width, dt)
         if not torch.equal(got, want):
             raise AssertionError(f"B1 {dt}: kernel differs from its plain version")
-    b1_ms = time_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50)
+    b1_ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50,
+                      "b1_masked_batch")
     b1_plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
                                                      torch.bfloat16), 50)
     b1_bytes = MASK_BATCH * 224 * 224 * 3 * 2 + 224 * 224 * (3 * 4 + 4) + MASK_BATCH * 4
     b1_bound_ms = b1_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[B1] K={MASK_BATCH} 224x224x3 S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms, "
-        f"plain {b1_plain_ms:.4f} ms, bound {b1_bound_ms:.4f} ms ({b1_bytes} bytes)")
+    log(f"[B1] K={MASK_BATCH} 224x224x3 S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms "
+        f"(device time), "
+        f"plain {b1_plain_ms:.4f} ms, bound {b1_bound_ms:.4f} ms ({b1_bytes} bytes), "
+        f"{b1_bound_ms / b1_ms:.3f} of bound")
 
     # 4. B2 against its plain version at the four ResNet-101 stage shapes
-    b2 = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "block_err": 0.0}
-    for batch in (32, MASK_BATCH):
+    b2 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "floor_ms": 0.0, "flops": 0, "bytes": 0,
+          "block_err": 0.0}
+    for batch in B2_BATCHES:
         for h, c, p, n in STAGES_101:
             ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
             x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
@@ -275,23 +379,25 @@ def main() -> int:
                     f"{x.numel() * n} outputs outside elementwise rtol=atol={B2_TOL}), "
                     f"whole-chain err {chain_err:.4g}")
             if batch == MASK_BATCH:
-                flops = 34 * h * h * p * p * batch * n
-                nbytes = 2 * batch * h * h * c * 2 + n * ((2 * c * p + 9 * p * p) * 2
-                                                         + (2 * p + c) * 4)
+                flops, nbytes, floor = b2_costs(h, c, p, n, batch)
                 bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
                 ms = time_ms(lambda: bottleneck_chain(x, ws), 10)
                 plain_ms = time_ms(lambda: bottleneck_chain_plain(x, ws), 3)
                 cudnn_ms = time_ms(cudnn_chain(x, ws), 10)
-                b2["ms"] += ms
-                b2["plain_ms"] += plain_ms
-                b2["flops"] += flops
-                b2["bytes"] += nbytes
-                line += (f"; kernel {ms:.4f} ms, plain (cuDNN f32) {plain_ms:.4f} ms, "
-                         f"bound {bound:.4f} ms ({flops:.4g} flop, {nbytes} bytes), "
-                         f"{flops / ms / 1e9:.1f} TFLOP/s; yardstick bf16 cuDNN chain "
-                         f"{cudnn_ms:.4f} ms")
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("cudnn_ms", cudnn_ms),
+                               ("floor_ms", floor), ("flops", flops), ("bytes", nbytes)):
+                    b2[key] += v
+                us = conv_us(x, ws)
+                line += (f"; kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+                         f"{bound / ms:.3f} of the chain bound {bound:.4f} ms ({flops:.4g} "
+                         f"flop, {nbytes} bytes), 3-launch floor {floor:.4f} ms; plain (cuDNN "
+                         f"f32) {plain_ms:.4f} ms; yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms; "
+                         f"per block reduce / 3x3 / expand "
+                         + " / ".join(f"{u:.1f}" for u in us) + " us")
             log(line)
             del x, ws
+    log(f"[B2] {smi}: total per forward of {MASK_BATCH}: kernel {b2['ms']:.4f} ms, yardstick "
+        f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms")
     for h, c, p, n in (STAGES_101[0], STAGES_101[3]):
         ws = b2_weights(rng, c, p, 2, torch.float32, dev)
         x = torch.from_numpy(np.abs(rng.randn(4, h, h, c)).astype(np.float32)).to(dev)

@@ -9,46 +9,457 @@
 //   y  = round(relu(t2 @ w2 + b2 + x))        1x1, P -> C, residual in f32
 //
 // with f32 accumulation and rounding to the storage type at exactly those
-// three points, as bottleneck_chain_xla (:163) does.
+// three points, as bottleneck_chain_xla (:163) does. Activations are NHWC, so
+// a 1x1 convolution is a plain [B*H*W, Cin] x [Cin, Cout] product and the 3x3
+// one is an implicit GEMM with K = 9*Cin ordered (kh, kw, ci): the HWIO weight
+// layout read as [9*Cin, Cout].
 //
-// Design: one templated implicit-GEMM convolution with a fused epilogue
-// (bias, optional residual, ReLU, cast), launched three times per block.
-// Activations are NHWC, so a 1x1 convolution is a plain [B*H*W, Cin] x
-// [Cin, Cout] product and the 3x3 one gathers its A tile from nine shifted
-// pixel rows (zero outside the image) with K = 9*Cin ordered (kh, kw, ci),
-// which is the HWIO weight layout read as [9*Cin, Cout]. Tiles stream
-// through shared memory with cp.async (zero-fill for padding and ragged
-// edges). bf16 runs on the tensor cores through WMMA 16x16x16 fragments with
-// f32 accumulators; the f32 instance (the parity mode) is a SIMT FMA loop.
-// t1 and t2 go through device memory (scratch from the caller). The last
-// 1x1 of every block after the first writes its output over its residual
-// input in place: each thread reads the residual element it then writes.
+// What bounds it on the H100 (989 bf16 TFLOP/s, 3.35 TB/s; M = B*H*W):
+// - The chain bound: 34*M*P^2 operations per block against reading x and
+//   writing y once per chain. ResNet-101 at B=256: 0.23, 0.34, 2.49 and
+//   0.23 ms for stages 1-4, 3.28 ms per forward.
+// - The floor of three launches per block: each convolution charged
+//   max(2*M*K*N / 989 TFLOP/s, (A read + output write + weights, + residual
+//   for the expand) / 3.35 TB/s): 0.98, 0.82, 3.69 and 0.24 ms. Stages 1-2
+//   sit on bytes (t1 and t2 go through device memory), stages 3-4 on the
+//   tensor cores' rate.
 //
-// What bounds it on the H100, per image: 34*H*W*P^2 operations per block
-// (8 + 18 + 8 from the three convolutions) against, at the least, reading x
-// and writing y once per chain, 2*H*W*C*2 bytes. The card does 295 bf16
-// operations per byte (989 TFLOP/s over 3.35 TB/s). ResNet-101's stage 1
-// chain (2 blocks, P=64) does 272 per byte, so bytes bound it, narrowly;
-// stages 2-4 do 816, 11968 and 2176, so operations bound them and the whole
-// forward. The current design is far from that bound: WMMA
-// (mma.sync) reaches a fraction of the rate of Hopper's wgmma, tiles are
-// 128x64 with no warp specialisation, and t1/t2 make three extra trips
-// through device memory per block. Left for later: wgmma with TMA loads, and
-// keeping a block on chip, which on Hopper needs spatial tiles with a halo
-// (one 56x56x64 bf16 t1 alone is 401 KB, more than the 227 KB of shared
-// memory a block can use).
+// Design (bf16): one implicit-GEMM kernel, b2_conv_wgmma<KS, BN>, launched three
+// times per block, persistent (one block per SM walks 128 x BN output tiles;
+// BN = 64, 128 or 256 from the Python tile plan, ops/bottleneck_chain.py:
+// conv_plan). A block has 384 threads. Warpgroup 0 is the producer: one
+// thread starts TMA loads into a ring of 128B-swizzled stages (A 128 x 64,
+// B 64 x BN) guarded by full/empty mbarriers, running ahead into the next
+// tile while the consumers finish the last. Warpgroups 1 and 2 each run
+// wgmma.mma_async m64nBNk16 on 64 rows with f32 accumulators in registers;
+// setmaxnreg moves registers from the producer (40) to them (232). B, the
+// weights, comes straight from JAX's [K, Cout] layout through an MN-major
+// tensor map, so nothing is repacked. A of a 1x1 is a TMA box of [M, Cin].
+// A of the 3x3 comes through TMA's im2col mode, one tap and one 64-channel
+// slice per K step, the hardware's zero fill giving the same padding and the
+// ragged last tile. (A gather by the producer warpgroup with cp.async into
+// the same swizzled layout was measured too: 123 against 89 us per 3x3 at
+// ResNet-101 stage 3, B=256, so im2col stayed; PERF.md.) The epilogue adds
+// bias in registers, and for the expand the bf16 residual, which TMA loaded
+// into the staged output tile under the main loop; it applies ReLU, rounds
+// once, writes the 128B-swizzled tile to shared memory and leaves it to TMA
+// stores, which overlap the next tile. This attacks the rate bound of stages
+// 3-4; the byte floor of stages 1-2 stays, since t1 and t2 still go through
+// device memory. The last 1x1 of every block after the first writes its
+// output over its residual input in place: a tile's residual is read, by the
+// same block, before the tile is written. C and P must be multiples of 64.
+//
+// f32 (the parity mode): a SIMT FMA implicit GEMM with cp.async tiles, since
+// wgmma has no true-f32 mode.
 
+#include <cuda.h>  // CUtensorMap types only; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
+// ---------------------------------------------------------------- bf16 path
+
+constexpr int kBM = 128, kBK = 64;  // output rows per block; K per stage (128 B)
+constexpr int kTcThreads = 384;     // producer warpgroup + two consumer warpgroups
+constexpr int kSmemMax = 232448;    // what one block may opt in to on the H100
+constexpr int kABytes = kBM * kBK * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// A wait that never ends (a lost TMA, a wrong byte count) traps after about
+// 2^28 polls, seconds on the card, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (polls == (1u << 28)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// im2col: 128 pixels from (w, h, n) on, walking the map's bounding box in
+// w, h, n order, each read at the tap offset (ow, oh); 64 channels from c.
+__device__ __forceinline__ void tma_load_im2col(void* dst, const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w, int h, int n,
+                                                int ow, int oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(static_cast<uint16_t>(ow)), "h"(static_cast<uint16_t>(oh))
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {  // keep the compiler's hands off
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; offsets in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_k16(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_m64n64k16(d, da, db, 1);
+  if constexpr (BN == 128) wgmma_m64n128k16(d, da, db, 1);
+  if constexpr (BN == 256) wgmma_m64n256k16(d, da, db, 1);
+}
+
+// out[m, n] = relu(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])),
+// persistent: block b computes the 128 x BN tiles b, b + gridDim.x, ... (N
+// tiles fastest, so the blocks in flight share their A rows in L2). A is the
+// NHWC input through `amap` (2D [M, Cin] for a 1x1, im2col of [B, H, W, Cin]
+// for the 3x3), Wt is [K, Cout] through `bmap`, and the output [M, Cout]
+// leaves through `omap` (TMA stores, which drop the rows past M). With
+// `has_res`, the residual [M, Cout] comes in through `rmap` (TMA loads into
+// the staged output tile, started with the tile); it may alias the
+// output.
+template <int KS, int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap bmap,
+              const __grid_constant__ CUtensorMap omap,
+              const __grid_constant__ CUtensorMap rmap, const float* __restrict__ bias,
+              int has_res, int H, int W, int kc, int stages, int n_tiles, int tiles) {
+  constexpr int B_BYTES = kBK * BN * 2;
+  constexpr int BOX = 64 * 128;  // one staged 64 x 64 bf16 output box, 128B-swizzled
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* a_ring = smem;
+  uint8_t* b_ring = smem + stages * kABytes;
+  uint8_t* staged = b_ring + stages * B_BYTES;  // [2 warpgroups][BN / 64 boxes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * (BN / 64) * BOX);
+  uint64_t* empty = full + stages;
+  uint64_t* res_full = empty + stages;  // one per consumer warpgroup
+  const int nk = KS * KS * kc;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(res_full, 1);
+    mbar_init(res_full + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int s = 0, ph = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
+        int img = 0, p = 0, q = 0;  // the tile's first output pixel
+        if constexpr (KS == 3) {
+          img = m0 / (H * W);
+          p = (m0 / W) % H;
+          q = m0 % W;
+        }
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty + s, ph ^ 1);
+          mbar_expect_tx(full + s, kABytes + B_BYTES);
+          uint8_t* a = a_ring + s * kABytes;
+          if constexpr (KS == 1) {
+            tma_load_2d(a, &amap, full + s, kt * kBK, m0);
+          } else {
+            const int tap = kt / kc;
+            tma_load_im2col(a, &amap, full + s, (kt - tap * kc) * kBK, q - 1, p - 1, img,
+                            tap % 3, tap / 3);
+          }
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(b_ring + s * B_BYTES + j * 8192, &bmap, full + s, n0 + 64 * j,
+                        kt * kBK);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroups 1 and 2: rows (wg - 1) * 64 .. + 63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;
+    const uint32_t a_base = smem_u32(a_ring) + wg * 64 * 128;
+    const uint32_t b_base = smem_u32(b_ring);
+    uint8_t* my_boxes = staged + wg * (BN / 64) * BOX;
+    int s = 0, ph = 0, res_ph = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
+      // This warpgroup's staging boxes are free once its last TMA store has
+      // read them; the residual then streams into them under the main loop.
+      if (leader) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        if (has_res) {
+          mbar_expect_tx(res_full + wg, (BN / 64) * BOX);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(my_boxes + j * BOX, &rmap, res_full + wg, n0 + 64 * j, m0 + wg * 64);
+        }
+      }
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full + s, ph);
+        acc_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // A: K-major rows of 128 B, 8-row groups 1024 B apart; a k16 step is 32 B.
+          // B: MN-major 64-column chunks 8 KB apart (LBO), 8-k groups 1024 B apart
+          // (SBO); a k16 step is 16 rows of 128 B.
+          wgmma_k16<BN>(acc, sw128_desc(a_base + s * kABytes + kk * 32, 1, 64),
+                        sw128_desc(b_base + s * B_BYTES + kk * 2048, 512, 64));
+        }
+        wgmma_commit();
+        // Hand the stage back as soon as its products are done: the two
+        // consumer warpgroups keep the tensor cores busy between them, and
+        // the producer gets every stage but one to load ahead.
+        wgmma_wait<0>();
+        acc_fence(acc);
+        if (lane == 0) mbar_arrive(empty + s);
+        __syncwarp();
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+
+      // Epilogue, while the producer already loads the next tile. Each thread
+      // reads the residual where it then writes its output.
+      if (has_res) {
+        mbar_wait(res_full + wg, res_ph);
+        res_ph ^= 1;
+      } else {
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the leader's wait
+      }
+      const int r0 = warp * 16 + lane / 4;  // row within this warpgroup's 64
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n0 + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          float v0 = acc[4 * j + 2 * h] + b.x, v1 = acc[4 * j + 2 * h + 1] + b.y;
+          // Box j / 8, row r, 16-byte unit (j % 8) ^ (r % 8): the 128B swizzle.
+          uint8_t* dst = my_boxes + (j / 8) * BOX + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
+                         (lane % 4) * 4;
+          if (has_res) {
+            const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dst));
+            v0 += x.x;
+            v1 += x.y;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the TMA store
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (leader) {
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          asm volatile(
+              "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                  "l"(reinterpret_cast<uint64_t>(&omap)),
+              "r"(smem_u32(my_boxes + j * BOX)), "r"(n0 + 64 * j), "r"(m0 + wg * 64)
+              : "memory");
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Host side: tensor maps through the driver's entry points (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the bf16 entry besides cudaGetLastError()'s (all negative).
+constexpr int kErrDriver = -1, kErrEncode = -2, kErrPlan = -3;
+
+void* driver_fn(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault, &status);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &status);
+#endif
+  return err == cudaSuccess && status == cudaDriverEntryPointSuccess ? fn : nullptr;
+}
+
+// [rows, cols] bf16 row-major, read as boxes of box_rows x 64 columns (128 B).
+bool map_2d(EncodeTiled enc, CUtensorMap* map, const void* base, long long rows, int cols,
+            int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// im2col of an NHWC [B, H, W, C] tensor for a 3x3 same-padded stride-1
+// convolution: the bounding box of tap origins runs from -1 to W-2 (H-2), so
+// one output pixel per position; 128 pixels x 64 channels per load.
+bool map_im2col(EncodeIm2col enc, CUtensorMap* map, const void* base, int B, int H, int W,
+                int C) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             lower, upper, 64, kBM, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One tile plan per convolution, as ops/bottleneck_chain.py:conv_plan gives it.
+struct Plan {
+  int bn, stages, smem, grid;
+};
+
+template <int KS, int BN>
+int launch_bn(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& omap,
+              const CUtensorMap& rmap, const float* bias, int has_res, int H, int W, int Cout,
+              int kc, const Plan& p, int tiles, cudaStream_t s) {
+  static bool opted_in = false;  // > 48 KB of dynamic shared memory needs the opt-in
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        b2_conv_wgmma<KS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  b2_conv_wgmma<KS, BN><<<p.grid, kTcThreads, p.smem, s>>>(
+      amap, bmap, omap, rmap, bias, has_res, H, W, kc, p.stages, Cout / BN, tiles);
+  return 0;
+}
+
+template <int KS>
+int launch(EncodeTiled enc, const CUtensorMap& amap, const void* wt, const void* bias,
+           const bf16* res, bf16* out, long long M, int H, int W, int Cin, int Cout,
+           const Plan& p, cudaStream_t s) {
+  const long long need = 1024 + 256LL * p.bn + static_cast<long long>(p.stages) *
+                                                   (kABytes + 128 * p.bn) + (2 * p.stages + 2) * 8;
+  const long long tiles = (M + kBM - 1) / kBM * (Cout / (p.bn > 0 ? p.bn : 1));
+  if ((p.bn != 64 && p.bn != 128 && p.bn != 256) || Cout % p.bn || Cin % kBK ||
+      p.stages < 2 || p.smem < need || p.smem > kSmemMax || p.grid < 1 || p.grid > tiles)
+    return kErrPlan;
+  CUtensorMap bmap, omap, rmap;
+  if (!map_2d(enc, &bmap, wt, static_cast<long long>(KS) * KS * Cin, Cout, kBK) ||
+      !map_2d(enc, &omap, out, M, Cout, 64) ||
+      !map_2d(enc, &rmap, res != nullptr ? res : out, M, Cout, 64))
+    return kErrEncode;
+  const float* b = static_cast<const float*>(bias);
+  const int r = res != nullptr, kc = Cin / kBK, t = static_cast<int>(tiles);
+  if (p.bn == 64) return launch_bn<KS, 64>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
+  if (p.bn == 128) return launch_bn<KS, 128>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
+  return launch_bn<KS, 256>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
+}
+
+int chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* w, int n_blocks,
+               int B, int H, int W, int C, int P, const int* plan, void* stream) {
+  static EncodeTiled tiled = nullptr;
+  static EncodeIm2col im2col = nullptr;
+  if (tiled == nullptr || im2col == nullptr) {
+    tiled = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+    im2col = reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
+    if (tiled == nullptr || im2col == nullptr) return kErrDriver;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long M = static_cast<long long>(B) * H * W;
+  const Plan reduce{plan[0], plan[1], plan[2], plan[3]};
+  const Plan spatial{plan[4], plan[5], plan[6], plan[7]};
+  const Plan expand{plan[8], plan[9], plan[10], plan[11]};
+  const bf16* in = static_cast<const bf16*>(x);
+  bf16* y = static_cast<bf16*>(out);
+  bf16* a = static_cast<bf16*>(t1);
+  bf16* b = static_cast<bf16*>(t2);
+  for (int i = 0; i < n_blocks; ++i) {
+    const void* const* wb = w + 6 * i;  // w1, b1, w3, b3, w2, b2
+    CUtensorMap am;
+    int rc = 0;
+    if (!map_2d(tiled, &am, in, M, C, kBM)) return kErrEncode;
+    rc = launch<1>(tiled, am, wb[0], wb[1], nullptr, a, M, H, W, C, P, reduce, s);
+    if (rc) return rc;
+    if (!map_im2col(im2col, &am, a, B, H, W, P)) return kErrEncode;
+    rc = launch<3>(tiled, am, wb[2], wb[3], nullptr, b, M, H, W, P, P, spatial, s);
+    if (rc) return rc;
+    if (!map_2d(tiled, &am, b, M, P, kBM)) return kErrEncode;
+    rc = launch<1>(tiled, am, wb[4], wb[5], in, y, M, H, W, P, C, expand, s);
+    if (rc) return rc;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    in = y;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------------------- f32 path
+
+// 64x64 output tile, each of 256 threads 4x4 outputs, K step 16, two stages.
 constexpr int kThreads = 256;
+constexpr int kFM = 64, kFN = 64, kFK = 16, kFStages = 2, kFPad = 4;
+constexpr int kFLda = kFK + kFPad, kFLdb = kFN + kFPad;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -64,30 +475,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Tile shapes. bf16: 128x64 output tile, 8 warps each holding 32x32 as 2x2
-// WMMA fragments, K step 32, three-stage pipeline (43.5 KB of shared
-// memory). f32: 64x64 tile, each thread 4x4 outputs, K step 16, two stages.
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int BM = 128, BN = 64, BK = 32, STAGES = 3, PAD = 8;
-};
-template <>
-struct Cfg<float> {
-  static constexpr int BM = 64, BN = 64, BK = 16, STAGES = 2, PAD = 4;
-};
-
 // Loads the A (activation) tiles of one output tile. Each thread copies the
 // same 16-byte column of ITERS fixed rows at every K step, so the rows'
 // pixel coordinates are computed once.
-template <typename T, int KS>
+template <int KS>
 struct ALoader {
-  using C = Cfg<T>;
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int VPR = C::BK / VEC;  // 16-byte vectors per tile row
-  static constexpr int ITERS = C::BM * VPR / kThreads;
-  static constexpr int LD = C::BK + C::PAD;
+  static constexpr int VEC = 4;
+  static constexpr int VPR = kFK / VEC;  // 16-byte vectors per tile row
+  static constexpr int ITERS = kFM * VPR / kThreads;
 
   long long m[ITERS];  // output pixel of the row, -1 past the end
   int h[ITERS], w[ITERS];
@@ -106,13 +501,13 @@ struct ALoader {
     }
   }
 
-  __device__ void load(T* As, const T* A, int k0, int K, int H, int W, int Cin) const {
+  __device__ void load(float* As, const float* A, int k0, int K, int H, int W, int Cin) const {
     const int k = k0 + kv;
 #pragma unroll
     for (int i = 0; i < ITERS; ++i) {
-      T* dst = As + (row0 + i * (kThreads / VPR)) * LD + kv;
+      float* dst = As + (row0 + i * (kThreads / VPR)) * kFLda + kv;
       bool ok = m[i] >= 0 && k < K;
-      const T* src = A;
+      const float* src = A;
       if (ok) {
         if (KS == 1) {
           src = A + m[i] * Cin + k;
@@ -131,188 +526,64 @@ struct ALoader {
 };
 
 // Loads the B (weight, [K, Cout] row-major) tile: one 16-byte vector per thread.
-template <typename T>
-__device__ __forceinline__ void load_b(T* Bs, const T* Wt, int k0, int n0, int K, int Cout) {
-  using C = Cfg<T>;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = C::BN / VEC;
-  static_assert(C::BK * VPR == kThreads, "one B vector per thread");
+__device__ __forceinline__ void load_b(float* Bs, const float* Wt, int k0, int n0, int K,
+                                       int Cout) {
+  constexpr int VPR = kFN / 4;
+  static_assert(kFK * VPR == kThreads, "one B vector per thread");
   const int r = threadIdx.x / VPR;
-  const int c = (threadIdx.x % VPR) * VEC;
+  const int c = (threadIdx.x % VPR) * 4;
   const bool ok = k0 + r < K && n0 + c < Cout;
-  const T* src = ok ? Wt + static_cast<long long>(k0 + r) * Cout + n0 + c : Wt;
-  cp_async16(Bs + r * (C::BN + C::PAD) + c, src, ok);
+  const float* src = ok ? Wt + static_cast<long long>(k0 + r) * Cout + n0 + c : Wt;
+  cp_async16(Bs + r * kFLdb + c, src, ok);
 }
 
-// out[m, n] = act(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])),
+// out[m, n] = relu(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])),
 // with A the implicit im2col of the NHWC input for a KS x KS, stride-1,
 // same-padded convolution. `residual` may alias `out`.
 template <int KS>
 __global__ void __launch_bounds__(kThreads)
-conv_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
-               const float* __restrict__ bias, const bf16* residual, bf16* out,
-               long long M, int H, int W, int Cin, int Cout) {
-  using C = Cfg<bf16>;
-  constexpr int LDA = C::BK + C::PAD, LDB = C::BN + C::PAD, LDC = C::BN + 4;
-  constexpr int A_ELEMS = C::BM * LDA, STAGE_ELEMS = A_ELEMS + C::BK * LDB;
-  constexpr int PIPE_BYTES = C::STAGES * STAGE_ELEMS * 2;
-  constexpr int C_BYTES = C::BM * LDC * 4;
-  constexpr int SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-  __shared__ __align__(128) unsigned char smem_raw[SMEM];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+b2_conv_f32(const float* __restrict__ A, const float* __restrict__ Wt,
+            const float* __restrict__ bias, const float* residual, float* out, long long M,
+            int H, int W, int Cin, int Cout) {
+  constexpr int A_ELEMS = kFM * kFLda, STAGE_ELEMS = A_ELEMS + kFK * kFLdb;
+  __shared__ __align__(128) float smem[kFStages * STAGE_ELEMS];
 
   const int K = KS * KS * Cin;
-  const int nk = (K + C::BK - 1) / C::BK;
-  const long long m0 = static_cast<long long>(blockIdx.x) * C::BM;
-  const int n0 = blockIdx.y * C::BN;
-  const ALoader<bf16, KS> aload(m0, M, H, W);
-
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < nk) {
-      aload.load(smem + s * STAGE_ELEMS, A, s * C::BK, K, H, W, Cin);
-      load_b(smem + s * STAGE_ELEMS + A_ELEMS, Wt, s * C::BK, n0, K, Cout);
-    }
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();
-    const int pf = kt + C::STAGES - 1;
-    if (pf < nk) {
-      bf16* st = smem + (pf % C::STAGES) * STAGE_ELEMS;
-      aload.load(st, A, pf * C::BK, K, H, W, Cin);
-      load_b(st + A_ELEMS, Wt, pf * C::BK, n0, K, Cout);
-    }
-    cp_async_commit();
-
-    const bf16* As = smem + (kt % C::STAGES) * STAGE_ELEMS;
-    const bf16* Bs = As + A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < C::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue: accumulators -> shared f32 tile -> 8 outputs per thread step.
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  constexpr int VPR = C::BN / 8;
-#pragma unroll
-  for (int it = 0; it < C::BM * VPR / kThreads; ++it) {
-    const int v = threadIdx.x + it * kThreads;
-    const int row = v / VPR;
-    const int col = (v % VPR) * 8;
-    const long long m = m0 + row;
-    const int n = n0 + col;
-    if (m >= M || n >= Cout) continue;
-    float r[8];
-    const float4* cs = reinterpret_cast<const float4*>(Cs + row * LDC + col);
-    const float4* bs = reinterpret_cast<const float4*>(bias + n);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float4 c4 = cs[q];
-      const float4 b4 = __ldg(bs + q);
-      r[4 * q + 0] = c4.x + b4.x;
-      r[4 * q + 1] = c4.y + b4.y;
-      r[4 * q + 2] = c4.z + b4.z;
-      r[4 * q + 3] = c4.w + b4.w;
-    }
-    const long long off = m * Cout + n;
-    if (residual != nullptr) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(residual + off);
-      const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 f = __bfloat1622float2(rp[q]);
-        r[2 * q] += f.x;
-        r[2 * q + 1] += f.y;
-      }
-    }
-    uint4 packed;
-    __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      pp[q] = __floats2bfloat162_rn(fmaxf(r[2 * q], 0.f), fmaxf(r[2 * q + 1], 0.f));
-    *reinterpret_cast<uint4*>(out + off) = packed;
-  }
-}
-
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
-conv_gemm_f32(const float* __restrict__ A, const float* __restrict__ Wt,
-              const float* __restrict__ bias, const float* residual, float* out,
-              long long M, int H, int W, int Cin, int Cout) {
-  using C = Cfg<float>;
-  constexpr int LDA = C::BK + C::PAD, LDB = C::BN + C::PAD;
-  constexpr int A_ELEMS = C::BM * LDA, STAGE_ELEMS = A_ELEMS + C::BK * LDB;
-  __shared__ __align__(128) float smem[C::STAGES * STAGE_ELEMS];
-
-  const int K = KS * KS * Cin;
-  const int nk = (K + C::BK - 1) / C::BK;
-  const long long m0 = static_cast<long long>(blockIdx.x) * C::BM;
-  const int n0 = blockIdx.y * C::BN;
-  const ALoader<float, KS> aload(m0, M, H, W);
+  const int nk = (K + kFK - 1) / kFK;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kFM;
+  const int n0 = blockIdx.y * kFN;
+  const ALoader<KS> aload(m0, M, H, W);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4] = {};
 
 #pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
+  for (int s = 0; s < kFStages - 1; ++s) {
     if (s < nk) {
-      aload.load(smem + s * STAGE_ELEMS, A, s * C::BK, K, H, W, Cin);
-      load_b(smem + s * STAGE_ELEMS + A_ELEMS, Wt, s * C::BK, n0, K, Cout);
+      aload.load(smem + s * STAGE_ELEMS, A, s * kFK, K, H, W, Cin);
+      load_b(smem + s * STAGE_ELEMS + A_ELEMS, Wt, s * kFK, n0, K, Cout);
     }
     cp_async_commit();
   }
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<C::STAGES - 2>();
+    cp_async_wait<kFStages - 2>();
     __syncthreads();
-    const int pf = kt + C::STAGES - 1;
+    const int pf = kt + kFStages - 1;
     if (pf < nk) {
-      float* st = smem + (pf % C::STAGES) * STAGE_ELEMS;
-      aload.load(st, A, pf * C::BK, K, H, W, Cin);
-      load_b(st + A_ELEMS, Wt, pf * C::BK, n0, K, Cout);
+      float* st = smem + (pf % kFStages) * STAGE_ELEMS;
+      aload.load(st, A, pf * kFK, K, H, W, Cin);
+      load_b(st + A_ELEMS, Wt, pf * kFK, n0, K, Cout);
     }
     cp_async_commit();
 
-    const float* As = smem + (kt % C::STAGES) * STAGE_ELEMS;
+    const float* As = smem + (kt % kFStages) * STAGE_ELEMS;
     const float* Bs = As + A_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < C::BK; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * LDB + tx * 4);
+    for (int kk = 0; kk < kFK; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kFLdb + tx * 4);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float a = As[(ty * 4 + i) * LDA + kk];
+        const float a = As[(ty * 4 + i) * kFLda + kk];
         acc[i][0] = fmaf(a, b.x, acc[i][0]);
         acc[i][1] = fmaf(a, b.y, acc[i][1]);
         acc[i][2] = fmaf(a, b.z, acc[i][2]);
@@ -347,36 +618,28 @@ conv_gemm_f32(const float* __restrict__ A, const float* __restrict__ Wt,
   }
 }
 
-template <typename T, int KS>
-void conv(const T* a, const void* w, const void* b, const T* res, T* out, long long M,
-          int H, int W, int Cin, int Cout, cudaStream_t s) {
-  using C = Cfg<T>;
-  const dim3 grid(static_cast<unsigned>((M + C::BM - 1) / C::BM), (Cout + C::BN - 1) / C::BN);
-  if constexpr (sizeof(T) == 2) {
-    conv_gemm_bf16<KS><<<grid, kThreads, 0, s>>>(a, static_cast<const T*>(w),
-                                                 static_cast<const float*>(b), res, out, M,
-                                                 H, W, Cin, Cout);
-  } else {
-    conv_gemm_f32<KS><<<grid, kThreads, 0, s>>>(a, static_cast<const T*>(w),
-                                                static_cast<const float*>(b), res, out, M,
-                                                H, W, Cin, Cout);
-  }
+template <int KS>
+void conv_f32(const float* a, const void* w, const void* b, const float* res, float* out,
+              long long M, int H, int W, int Cin, int Cout, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((M + kFM - 1) / kFM), (Cout + kFN - 1) / kFN);
+  b2_conv_f32<KS><<<grid, kThreads, 0, s>>>(a, static_cast<const float*>(w),
+                                            static_cast<const float*>(b), res, out, M, H, W, Cin,
+                                            Cout);
 }
 
-template <typename T>
-int chain(const void* x, void* out, void* t1, void* t2, const void* const* w, int n_blocks,
-          int B, int H, int W, int C, int P, void* stream) {
+int chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w, int n_blocks,
+              int B, int H, int W, int C, int P, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(B) * H * W;
-  const T* in = static_cast<const T*>(x);
-  T* y = static_cast<T*>(out);
-  T* a = static_cast<T*>(t1);
-  T* b = static_cast<T*>(t2);
+  const float* in = static_cast<const float*>(x);
+  float* y = static_cast<float*>(out);
+  float* a = static_cast<float*>(t1);
+  float* b = static_cast<float*>(t2);
   for (int i = 0; i < n_blocks; ++i) {
     const void* const* wb = w + 6 * i;  // w1, b1, w3, b3, w2, b2
-    conv<T, 1>(in, wb[0], wb[1], nullptr, a, M, H, W, C, P, s);
-    conv<T, 3>(a, wb[2], wb[3], nullptr, b, M, H, W, P, P, s);
-    conv<T, 1>(b, wb[4], wb[5], in, y, M, H, W, P, C, s);
+    conv_f32<1>(in, wb[0], wb[1], nullptr, a, M, H, W, C, P, s);
+    conv_f32<3>(a, wb[2], wb[3], nullptr, b, M, H, W, P, P, s);
+    conv_f32<1>(b, wb[4], wb[5], in, y, M, H, W, P, C, s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     in = y;
@@ -390,15 +653,20 @@ extern "C" {
 
 // x, out: [B, H, W, C] NHWC; t1, t2: [B, H, W, P] scratch; w: host array of
 // 6*n_blocks device pointers per block (w1 [C, P], b1 f32 [P], w3 [3, 3, P, P],
-// b3 f32 [P], w2 [P, C], b2 f32 [C]). Returns cudaGetLastError().
+// b3 f32 [P], w2 [P, C], b2 f32 [C]); plan: 12 host ints, (N tile, stages,
+// dynamic shared-memory bytes, grid) for the reduce, 3x3 and expand
+// convolutions. C and P are multiples of 64. Returns cudaGetLastError(), or
+// -1 (no driver entry point for tensor maps), -2 (a tensor map was refused)
+// or -3 (a plan the kernel cannot run).
 int bottleneck_chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* w,
-                          int n_blocks, int B, int H, int W, int C, int P, void* stream) {
-  return chain<bf16>(x, out, t1, t2, w, n_blocks, B, H, W, C, P, stream);
+                          int n_blocks, int B, int H, int W, int C, int P, const int* plan,
+                          void* stream) {
+  return chain_bf16(x, out, t1, t2, w, n_blocks, B, H, W, C, P, plan, stream);
 }
 
 int bottleneck_chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w,
                          int n_blocks, int B, int H, int W, int C, int P, void* stream) {
-  return chain<float>(x, out, t1, t2, w, n_blocks, B, H, W, C, P, stream);
+  return chain_f32(x, out, t1, t2, w, n_blocks, B, H, W, C, P, stream);
 }
 
 }  // extern "C"

@@ -4,6 +4,9 @@ Counterpart of the TPU kernel ``ops/pallas_bottleneck.py:105``
 (``fused_bottleneck_chain``). :func:`bottleneck_chain` launches
 ``csrc/bottleneck_chain.cu`` (three implicit-GEMM launches per block) for
 CUDA tensors and takes :func:`bottleneck_chain_plain` only for CPU tensors.
+The bf16 kernel (``wgmma`` fed by TMA) runs the tile plan that
+:func:`conv_plan` derives from each convolution's shape; on the card it takes
+C and P that are multiples of 64 (:func:`check_cuda_shapes`).
 
 Weights come as the JAX package lays them out, six per block, BatchNorm
 already folded (``models.common.fold_bn``): ``w1 [C, P]``, ``b1 [P]``,
@@ -15,15 +18,80 @@ model casts them once when it is built).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
 
-_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIG_F32 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIG_BF16 = _SIG_F32[:-1] + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 _ENTRY = {torch.bfloat16: "bottleneck_chain_bf16", torch.float32: "bottleneck_chain_f32"}
+_SIGS = {_ENTRY[torch.bfloat16]: _SIG_BF16, _ENTRY[torch.float32]: _SIG_F32}
+
+TILE_M = 128           # output rows per block: two consumer warpgroups of 64
+TILE_K = 64            # K per pipeline stage: one 128-byte swizzle row of bf16
+MAX_STAGES = 8
+SMEM_PER_BLOCK = 232_448   # the most dynamic shared memory a Hopper block may opt in to
+_SMEM_ALIGN = 1024         # slack for aligning the ring to the 128B swizzle's 1024-byte atom
+H100_SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """Tile plan of one bf16 convolution launch: the N tile, the depth of
+    the shared-memory ring, the dynamic shared memory it takes, the output
+    tiles (``m_tiles * n_tiles``, N tiles fastest) and the persistent grid
+    that walks them, one block per SM at most."""
+
+    bn: int
+    stages: int
+    smem: int
+    m_tiles: int
+    n_tiles: int
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def conv_plan(m: int, cin: int, cout: int, ks: int, sms: int = H100_SMS) -> ConvPlan:
+    """The tile plan for a ``ks`` x ``ks`` convolution, [m, ks*ks*cin] x
+    [ks*ks*cin, cout] as a GEMM: the widest N tile of 256, 128 or 64 that
+    divides ``cout``, but at most 128 for a 1x1 with ``cin`` >= 256, whose
+    long K loop gains more from the deeper ring that the narrower tile
+    leaves room for (measured on the H100, PERF.md); beside the output tile
+    staged for its TMA stores (256 * N bytes: two warpgroups' 64 rows), as
+    many stages of A (128 x 64) and B (64 x N) tiles as fit, up to 8; and
+    ``min(tiles, sms)`` persistent blocks."""
+    check_cuda_shapes(cin, cout)
+    widest = 128 if ks == 1 and cin >= 256 else 256
+    bn = next(n for n in (256, 128, 64) if cout % n == 0 and n <= widest)
+    stage = (TILE_M * TILE_K + TILE_K * bn) * 2
+    staged = TILE_M * bn * 2
+
+    def smem(stages):  # + a full and an empty mbarrier per stage, a residual one per warpgroup
+        return _SMEM_ALIGN + staged + stages * stage + (2 * stages + 2) * 8
+
+    stages = max(s for s in range(1, MAX_STAGES + 1) if smem(s) <= SMEM_PER_BLOCK)
+    m_tiles, n_tiles = -(-m // TILE_M), cout // bn
+    return ConvPlan(bn, stages, smem(stages), m_tiles, n_tiles, min(m_tiles * n_tiles, sms))
+
+
+def chain_plan(b: int, h: int, w: int, c: int, p: int, sms: int = H100_SMS) -> tuple:
+    """Plans of a block's three launches: 1x1 reduce (C -> P), 3x3 (P -> P)
+    and 1x1 expand (P -> C)."""
+    m = b * h * w
+    return conv_plan(m, c, p, 1, sms), conv_plan(m, p, p, 3, sms), conv_plan(m, p, c, 1, sms)
+
+
+def check_cuda_shapes(c: int, p: int) -> None:
+    """The bf16 kernel reads K and N in 64-channel slices: one TMA box row of
+    128 bytes, one ``wgmma`` N multiple. Other widths run only on the CPU."""
+    if c % 64 or p % 64 or c <= 0 or p <= 0:
+        raise ValueError(f"bottleneck_chain: on the card C={c} and P={p} must be "
+                         "multiples of 64")
 
 
 def bottleneck_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -74,16 +142,25 @@ def bottleneck_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.
                              f"tensor on {x.device}, got {t.dtype} on {t.device}")
     b, h, w, c = x.shape
     p = weights[0].shape[1]
-    if c % 8 or p % 8:
+    if x.dtype == torch.bfloat16:
+        check_cuda_shapes(c, p)
+    elif c % 8 or p % 8:
         raise ValueError(f"bottleneck_chain: C={c} and P={p} must be multiples of 8")
+    if b * h * w >= 2**31:
+        raise ValueError(f"bottleneck_chain: B*H*W={b * h * w} too large for one call")
     out = torch.empty_like(x)
     t1 = torch.empty((b, h, w, p), dtype=x.dtype, device=x.device)
     t2 = torch.empty_like(t1)
     ptrs = (ctypes.c_void_p * len(weights))(*[t.data_ptr() for t in weights])
-    lib = _cuda_build.library("bottleneck_chain", {e: _SIG for e in _ENTRY.values()})
-    rc = getattr(lib, _ENTRY[x.dtype])(
-        _cuda_build.ptr(x), _cuda_build.ptr(out), _cuda_build.ptr(t1), _cuda_build.ptr(t2),
-        ptrs, len(weights) // 6, b, h, w, c, p, _cuda_build.stream_ptr(x.device))
+    args = [_cuda_build.ptr(x), _cuda_build.ptr(out), _cuda_build.ptr(t1), _cuda_build.ptr(t2),
+            ptrs, len(weights) // 6, b, h, w, c, p]
+    if x.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = [v for cp in chain_plan(b, h, w, c, p, sms)
+                for v in (cp.bn, cp.stages, cp.smem, cp.grid)]
+        args.append((ctypes.c_int * len(plan))(*plan))
+    lib = _cuda_build.library("bottleneck_chain", _SIGS)
+    rc = getattr(lib, _ENTRY[x.dtype])(*args, _cuda_build.stream_ptr(x.device))
     _cuda_build.check(rc, "bottleneck_chain")
     bottleneck_chain.launches += 1
     return out

@@ -4,7 +4,8 @@ Counterpart of the TPU kernel ``ops/pallas_masking.py:49``
 (``masked_batch_pallas``). :func:`masked_batch` launches
 ``csrc/masked_batch.cu`` for CUDA tensors and takes :func:`masked_batch_plain`
 (window masks, multiply, cast) only for CPU tensors. Both are bit-identical:
-the product is f32 and rounds once.
+the product is f32 and rounds once. The kernel writes a group of masks per
+block; :func:`launch_plan` sizes the group and the grid.
 """
 
 from __future__ import annotations
@@ -16,8 +17,24 @@ import torch
 from network_interpretation_imagenet_tpu_torch.ops import _cuda_build, masking
 
 _SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ENTRY = {torch.bfloat16: "masked_batch_bf16", torch.float32: "masked_batch_f32"}
+
+THREADS = 256        # per block; each thread owns 8 consecutive elements of the image
+PER_THREAD = 8
+MAX_GROUP = 64       # masks per block, the kernel's shared-memory table of starts
+_TARGET_BLOCKS = 4 * 132   # a few blocks per SM of the H100
+
+
+def launch_plan(k: int, hwc: int) -> tuple:
+    """(group, grid_x, grid_y): grid_x blocks cover the H*W*C elements, and
+    each block writes ``group`` masks, as many as still leave about four
+    blocks per SM, at most 64. At 224x224x3 and K=256 that is 32 masks,
+    128 KB of bf16 per block, in a 74 x 8 grid."""
+    grid_x = -(-hwc // (PER_THREAD * THREADS))
+    rows = -(-_TARGET_BLOCKS // grid_x)
+    group = min(MAX_GROUP, -(-k // rows))
+    return group, grid_x, -(-k // group)
 
 
 def masked_batch_plain(image, segments, firsts, width, out_dtype=torch.bfloat16):
@@ -52,7 +69,7 @@ def masked_batch(image: torch.Tensor, segments: torch.Tensor, firsts: torch.Tens
     lib = _cuda_build.library("masked_batch", {e: _SIG for e in _ENTRY.values()})
     rc = getattr(lib, _ENTRY[out_dtype])(
         _cuda_build.ptr(image), _cuda_build.ptr(segments), _cuda_build.ptr(firsts),
-        int(width), _cuda_build.ptr(out), k, h * w * c, c,
+        int(width), _cuda_build.ptr(out), k, h * w * c, c, *launch_plan(k, h * w * c),
         _cuda_build.stream_ptr(image.device))
     _cuda_build.check(rc, "masked_batch")
     masked_batch.launches += 1

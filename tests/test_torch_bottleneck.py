@@ -13,6 +13,7 @@ import torch
 
 from network_interpretation_imagenet_tpu.ops import pallas_bottleneck as jpb
 from network_interpretation_imagenet_tpu_torch.models.common import fold_bn
+from network_interpretation_imagenet_tpu_torch.ops import bottleneck_chain as jbc
 from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_plain,
@@ -85,3 +86,41 @@ def test_bottleneck_chain_checks_shapes_and_layout(rng):
     before = bottleneck_chain.launches
     bottleneck_chain(x, tw)
     assert bottleneck_chain.launches == before  # CPU runs count no launch
+
+
+def _stage_shapes():
+    """(arch, H, C, P) of every stage of the Bottleneck ResNets, from the
+    port's own configurations."""
+    from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import _CONFIGS
+
+    return [(arch, 56 >> s, 256 << s, 64 << s)
+            for arch, sizes in _CONFIGS.items() for s in range(len(sizes))]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 32, 256])
+@pytest.mark.parametrize("arch,h,c,p", _stage_shapes())
+def test_chain_plan_fits_and_covers(arch, h, c, p, batch):
+    m = batch * h * h
+    for plan, (cin, cout) in zip(jbc.chain_plan(batch, h, h, c, p), [(c, p), (p, p), (p, c)]):
+        assert plan.smem <= jbc.SMEM_PER_BLOCK == 232_448
+        assert plan.bn in (64, 128, 256) and cout % plan.bn == 0
+        assert plan.stages >= 3
+        ring = plan.stages * (jbc.TILE_M + plan.bn) * jbc.TILE_K * 2
+        assert plan.smem >= ring + jbc.TILE_M * plan.bn * 2 + 1024  # ring + staged output
+        assert plan.m_tiles * jbc.TILE_M >= m > (plan.m_tiles - 1) * jbc.TILE_M
+        assert plan.n_tiles * plan.bn == cout
+        assert 1 <= plan.grid <= min(plan.tiles, jbc.H100_SMS)
+        assert plan.grid == jbc.H100_SMS or plan.grid == plan.tiles  # no SM left idle
+        assert cin % jbc.TILE_K == 0
+
+
+@pytest.mark.parametrize("c,p,ok", [(256, 64, True), (2048, 512, True), (192, 128, True),
+                                    (256, 32, False), (96, 64, False), (64, 8, False),
+                                    (0, 64, False)])
+def test_cuda_shape_check(c, p, ok):
+    if ok:
+        jbc.check_cuda_shapes(c, p)
+        assert jbc.conv_plan(3 * 7 * 7, c, p, 1).bn in (64, 128, 256)
+    else:
+        with pytest.raises(ValueError, match="multiples of 64"):
+            jbc.check_cuda_shapes(c, p)

@@ -99,3 +99,15 @@ def test_masked_batch_cpu_does_not_count_launches(rng):
     with pytest.raises(ValueError):
         masked_batch(torch.from_numpy(img), torch.from_numpy(seg[:4]),
                      torch.tensor([1], dtype=torch.int32), 3)
+
+
+@pytest.mark.parametrize("k", [1, 3, 256, 1024])
+@pytest.mark.parametrize("hwc", [224 * 224 * 3, 13 * 7, 64 * 64 * 4])
+def test_masked_batch_launch_plan_covers(k, hwc):
+    from network_interpretation_imagenet_tpu_torch.ops import masked_batch as mb
+
+    group, grid_x, grid_y = mb.launch_plan(k, hwc)
+    assert 1 <= group <= mb.MAX_GROUP
+    assert grid_x * mb.THREADS * mb.PER_THREAD >= hwc > (grid_x - 1) * mb.THREADS * mb.PER_THREAD
+    assert grid_y * group >= k > (grid_y - 1) * group
+    assert grid_y <= 65535
