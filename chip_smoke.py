@@ -10,18 +10,36 @@ hand-written kernel against its plain PyTorch version on the card:
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: compiles csrc/*.cu from the checkout (one nvcc per source, in
      parallel) into the package's _build/;
-  3. B1 masked_batch vs its plain version, bf16 and f32, bit-exact;
+  3. B1 masked_batch vs its plain version, bf16 and f32, bit-exact, at the
+     random-window chunk (K=256), the BO loop's K = 1 and 3 with the width
+     read on the device, and into an out= slice of a larger buffer;
   4. B2 bottleneck_chain vs its plain version at all four ResNet-101 stage
      shapes with the real block counts, block by block within bf16
-     tolerance, at B = 3 (ragged against every tile), 32 and 256 (and f32 at
-     two shapes); per stage at B=256 its time, TFLOP/s, share of its bound,
-     the floor of three launches per block and a bf16 cuDNN yardstick; the
-     built library's SASS must hold HGMMA (wgmma) instructions;
-  5. the main path: Felzenszwalb -> predict_one -> random_window_saliency
-     (1024 masks) -> localization_score, with the launch counters reset
-     just before and read just after, then kernel-path vs plain-path
-     logits of the whole model on 32 masked images;
-  6. timings: warm masked-forward evals/s and p50 per-image latency.
+     tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
+     N=8 loop's), 32 and 256 (and f32 at two shapes); per stage at B=256 its
+     time, TFLOP/s, share of its bound, the floor of three launches per
+     block and a bf16 cuDNN yardstick; the built library's SASS must hold
+     HGMMA (wgmma) instructions;
+  5. the random-window path: Felzenszwalb -> predict_one ->
+     random_window_saliency (1024 masks) -> localization_score, with the
+     launch counters reset just before and read just after, then
+     kernel-path vs plain-path logits of the whole model on 32 masked images;
+  6. timings of that path: warm masked-forward evals/s and p50 latency;
+  7. the BO path (bo_window_saliency, 3 + 10 evaluations), from an empty
+     runner cache, each call with the counters reset just before and read
+     just after: the first call runs eagerly (B1 11, B2 44), the second
+     captures one CUDA graph (B1 11, B2 44) and replays it, the third only
+     replays (no launch from Python); the replays must equal the eager run,
+     the scores must match the random-window engine's on the same starts,
+     and a profiler trace of one replay must hold B1 and B2. The host loop
+     (B1 11, B2 44); the GP's and EI's proposals on the card vs the CPU on
+     the same observations; bo_window_saliency_multi at N=8 with per-image
+     seeds (B1 88, B2 44), every image's scores against the engine's;
+     [bo timing]: warm p50 latencies (graph, eager, host loop), streams of
+     16 distinct images from an empty cache (single calls, and N=8 calls),
+     the device's busy share of one replay, the GP step per iteration;
+  8. the flagship CLI on the card (main, or explain where PIL or matplotlib
+     is missing), counters held (B1 11, B2 48).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -30,6 +48,8 @@ CUDA device it exits non-zero and prints no result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -43,9 +63,12 @@ SEED = 0
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12   # HBM3 (NVIDIA data sheet)
 STAGES_101 = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 22), (7, 2048, 512, 2))
-B2_BATCHES = (3, 32, MASK_BATCH)
+B2_BATCHES = (1, 3, 8, 24, 32, MASK_BATCH)
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
+BO_IMAGES = 8                # bo_window_saliency_multi's N
+BO_BATCHES = (1, 3, 8, 24)   # the BO loops' forwards: single image, and N=8 images
+BO_SCORE_TOL = 0.05          # a BO score vs the engine's at another batch (bf16 rounding)
 PKG = "network_interpretation_imagenet_tpu_torch"
 
 
@@ -273,6 +296,361 @@ def device_breakdown(fn):
     return wall, groups, top
 
 
+def p50_ms(fn, reps):
+    """Median host milliseconds of ``reps`` warm calls that end in a device
+    sync (each BO call ends in its device-to-host copy)."""
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def replay_ms(graph, reps):
+    """Mean device milliseconds of one replay of a captured CUDA graph."""
+    return time_ms(graph.replay, reps)
+
+
+def replay_trace(graph):
+    """One replay of a captured CUDA graph under torch.profiler. Returns
+    (wall ms from replay() to the end of the device sync, the trace's device
+    span from the first interval's start to the last one's end, ms covered by
+    the union of its device intervals, device ms by group), all from this one
+    profiled call. The busy share is union / span: the wall also holds the
+    profiler's own start and stop. Raises unless the trace holds B1 and B2
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = []
+    groups = {"B2 bottleneck_chain": 0.0, "B1 masked_batch": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        group = ("B2 bottleneck_chain" if "b2_conv" in e.name else
+                 "B1 masked_batch" if "b1_masked_batch" in e.name else "other")
+        groups[group] += (e.time_range.end - e.time_range.start) / 1e3
+    if not (groups["B2 bottleneck_chain"] > 0 and groups["B1 masked_batch"] > 0):
+        raise AssertionError(f"graph replay trace: no B1 or no B2 kernel in it: {groups}")
+    union, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            union += b - max(a, reach)
+            reach = b
+    span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    return wall * 1e3, span, union / 1e3, groups
+
+
+def counted(by_path, path, fn, want_b1, want_b2):
+    """Runs ``fn`` with the kernels' launch counters set to 0 just before and
+    read just after; records them under ``path`` and raises unless they are
+    B1 ``want_b1`` and B2 ``want_b2``."""
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+
+    masked_batch.launches = 0
+    bottleneck_chain.launches = 0
+    result = fn()
+    got = {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches}
+    if got != {"masked_batch": want_b1, "bottleneck_chain": want_b2}:
+        raise AssertionError(f"{path}: launched {got}, want B1 {want_b1} and B2 {want_b2}")
+    by_path[path] = got
+    return result
+
+
+def ei_card_vs_cpu(xp, yp, n_pre, upper, dev):
+    """The fused loop's and the host loop's acquisition on the card and on
+    the CPU for the same observations (a BO trace), at every iteration.
+    Returns (max |EI card - EI CPU|, iterations whose argmax is held, their
+    count, near-ties skipped): an iteration is held to the same argmax
+    unless the CPU's top two stand closer than twice the EI error."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.bo import acquisition, loop
+    from network_interpretation_imagenet_tpu_torch.gp import exact
+
+    m = len(xp)
+    n_cand = loop.next_pow2(upper + 1)
+    eis = {}
+    for d in (dev, torch.device("cpu")):
+        grid = torch.tensor(loop.LENGTHSCALE_GRID, device=d)
+        cand = torch.arange(n_cand, dtype=torch.float32, device=d)
+        xs = torch.tensor(xp, dtype=torch.float32, device=d)[None]
+        ys = torch.tensor(yp, dtype=torch.float32, device=d)[None]
+        slots = torch.arange(m, device=d)
+        gp = exact.incremental_init(m, (1, grid.shape[0]), device=d)
+        out = []
+        for i in range(m - 1):
+            buf = torch.where(slots <= i, xs, torch.zeros_like(xs))
+            gp = exact.incremental_add(gp, buf[:, None, :], i, xs[:, i, None], grid, 1e-5)
+            if i + 1 >= n_pre:
+                ys_n = torch.where(slots < i + 1, ys, torch.zeros_like(ys))
+                out.append(loop.fused_ei(gp, buf, ys_n, i + 1, cand, grid,
+                                         cand[None] <= upper)[0].cpu())
+        for n in range(n_pre, m):
+            fit = exact.fit_lengthscale_sweep(xs[0, :n, None], ys[0, :n], grid)
+            out.append(acquisition.ei_over_candidates(fit, cand[:upper + 1, None], ys[0, :n]).cpu())
+        eis[d.type] = out
+    err, held, ties = 0.0, 0, 0
+    for card, cpu in zip(eis["cuda"], eis["cpu"]):
+        ok = torch.isfinite(cpu)
+        if not torch.equal(ok, torch.isfinite(card)):
+            raise AssertionError("EI: the card and the CPU disagree on which candidates are finite")
+        e = (card[ok] - cpu[ok]).abs().max().item()
+        err = max(err, e)
+        top = torch.topk(cpu, 2)
+        if top.values[0] - top.values[1] <= 2 * e:
+            ties += 1
+            continue
+        held += 1
+        if int(torch.argmax(card)) != int(top.indices[0]):
+            raise AssertionError(f"EI: the card proposes {int(torch.argmax(card))}, the CPU "
+                                 f"{int(top.indices[0])}")
+    return err, held, ties
+
+
+def bo_phase(engine, image, segments, target, smi, by_path):
+    """The BO path at full ResNet-101 bf16 (see the module docstring, 7).
+    Records each BO path's launches in ``by_path``."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.bo.loop import make_fused_window_bo, next_pow2
+    from network_interpretation_imagenet_tpu_torch.config import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        BOConfig,
+        SegmentConfig,
+    )
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
+        normalize,
+        to_display_uint8,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import (
+        bo_window_saliency,
+        bo_window_saliency_multi,
+        fused_runner,
+    )
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image_batch
+
+    cfg = BOConfig()
+    n_obs, n_fwd = cfg.n_pre_samples + cfg.n_iters, 1 + cfg.n_iters
+    s = int(segments.max()) + 1
+    upper = int(0.6 * s)
+
+    def explain(**kw):
+        return bo_window_saliency(engine, image, segments, cfg, seed=SEED, target=target, **kw)
+
+    def check(trace, what, up=upper):
+        if len(trace.xp) != n_obs or trace.xp.max() > up or trace.xp.min() < 0:
+            raise AssertionError(f"{what}: starts {trace.xp.tolist()} (want {n_obs} in [0, {up}])")
+        if not (np.isfinite(trace.yp).all() and (trace.yp >= 0).all() and (trace.yp <= 1).all()):
+            raise AssertionError(f"{what}: scores {trace.yp.tolist()} outside [0, 1]")
+
+    def score_err(img, segs, out, trace, tgt, what):
+        """A trace's scores and survive labels against the random-window
+        engine's on the same starts (one forward of all 13, B1 and B2 at
+        another batch): labels equal, scores within BO_SCORE_TOL."""
+        res = engine.eval_window_masks(img, segs, trace.xp, out.width, tgt)
+        err = float(np.abs(res.prob_target - trace.yp).max())
+        if not (err <= BO_SCORE_TOL and np.array_equal(res.survived, trace.survived)):
+            raise AssertionError(f"{what}: scores {trace.yp.tolist()} vs the engine's "
+                                 f"{res.prob_target.tolist()} on the same starts")
+        return err
+
+    # The path as users run it, from an empty cache: the first call of the
+    # shape runs eagerly, the second captures the graph and replays it, the
+    # third replays it (no Python launch).
+    engine.fused_runners.clear()
+    first_ms = []
+
+    def timed_explain():
+        t0 = time.perf_counter()
+        result = explain()
+        first_ms.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    out, eager = counted(by_path, "bo_fused_first_call", timed_explain, n_fwd, 4 * n_fwd)
+    check(eager, "fused eager")
+    _, graph = counted(by_path, "bo_fused_capture", timed_explain, n_fwd, 4 * n_fwd)
+    _, replayed = counted(by_path, "bo_fused_replay", explain, 0, 0)
+    check(graph, "fused graph")
+    ys_err = float(np.abs(graph.yp - eager.yp).max())
+    if not (np.array_equal(graph.xp, eager.xp) and np.array_equal(graph.survived, eager.survived)
+            and ys_err <= 1e-6):
+        raise AssertionError(f"graph replay {graph.xp.tolist()} vs eager {eager.xp.tolist()}, "
+                             f"ys err {ys_err}")
+    if not (np.array_equal(replayed.xp, graph.xp) and np.array_equal(replayed.yp, graph.yp)):
+        raise AssertionError("a second replay differs from the first")
+    eng_err = score_err(image, segments, out, graph, target, "fused graph")
+    run = fused_runner(engine, next_pow2(upper + 1), cfg, 1)
+    (replay_graph, _, _), = (e for e in run.graphs.values() if e is not None)
+    wall, span, union, groups = replay_trace(replay_graph)
+    replay_events_ms = replay_ms(replay_graph, 10)
+    log(f"[bo] S={s} upper={upper} width={out.width} target={target}: first call (eager) xp "
+        f"{eager.xp.tolist()} yp {[round(float(v), 4) for v in eager.yp]} survived "
+        f"{int(eager.survived.sum())}/{n_obs}; launches first call / capture / replay "
+        + " / ".join(json.dumps(by_path[k]) for k in
+                     ("bo_fused_first_call", "bo_fused_capture", "bo_fused_replay"))
+        + f"; replays equal the eager run (ys err {ys_err:.3g}); scores vs the engine on the "
+        f"same starts: max err {eng_err:.3g}; replay trace kernels by name "
+        + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+
+    # The host loop.
+    _, host = counted(by_path, "bo_host_loop", lambda: explain(fused=False), n_fwd, 4 * n_fwd)
+    check(host, "host loop")
+    log(f"[bo] host loop xp {host.xp.tolist()} survived {int(host.survived.sum())}/{n_obs}; "
+        f"launches {json.dumps(by_path['bo_host_loop'])}")
+
+    # GP and EI on the card vs the CPU, on the graph run's observations.
+    ei_err, held, ties = ei_card_vs_cpu(graph.xp, graph.yp, cfg.n_pre_samples, upper,
+                                        torch.device("cuda"))
+    log(f"[bo] GP + EI card vs CPU on the trace: max EI err {ei_err:.3g}; same proposal in "
+        f"{held} steps, {ties} near-ties not held")
+
+    # 2 x N distinct images (image 0 is the path's); N in one program, per-image seeds.
+    pool = [image] + [
+        normalize(torch.from_numpy(synthetic_image(SEED + i)[0].astype(np.float32) / 255.0),
+                  IMAGENET_MEAN, IMAGENET_STD).numpy() for i in range(1, 2 * BO_IMAGES)]
+    pool_segs = [segments] + segment_image_batch(
+        [to_display_uint8(torch.from_numpy(im)).numpy() for im in pool[1:]], SegmentConfig())
+    pool_targets = [target] + engine.predict(np.stack(pool[1:])).argmax(axis=1).tolist()
+
+    def multi(first, seed0):
+        sl = slice(first, first + BO_IMAGES)
+        return bo_window_saliency_multi(
+            engine, pool[sl], pool_segs[sl], cfg, targets=pool_targets[sl],
+            per_image_seeds=[seed0 + i for i in range(BO_IMAGES)])
+
+    results = counted(by_path, "bo_multi_first_call", lambda: multi(0, SEED),
+                      BO_IMAGES * n_fwd, 4 * n_fwd)
+    multi_err = 0.0
+    for i, (o, tr) in enumerate(results):
+        check(tr, f"multi image {i}", int(0.6 * o.num_segments))
+        multi_err = max(multi_err, score_err(pool[i], pool_segs[i], o, tr, pool_targets[i],
+                                             f"multi image {i}"))
+    first = results[0][1]
+    if not np.array_equal(first.xp[:cfg.n_pre_samples], graph.xp[:cfg.n_pre_samples]):
+        raise AssertionError(f"multi image 0 pre-samples {first.xp.tolist()} vs the single call's "
+                             f"{graph.xp.tolist()}")
+    agree = float(np.mean(first.xp == graph.xp))
+    log(f"[bo] multi N={BO_IMAGES}: segments {[int(g.max()) + 1 for g in pool_segs[:BO_IMAGES]]}; "
+        f"launches {json.dumps(by_path['bo_multi_first_call'])}; every image's scores vs the "
+        f"engine on the same starts: max err {multi_err:.3g}; image 0's pre-samples equal the "
+        f"single call's, {agree:.3f} of its {n_obs} starts equal (bf16 at batch {BO_IMAGES} "
+        f"rounds otherwise than at batch 1: reported, not held)")
+
+    # Warm timings: the same image (the program does the same work for any
+    # image of the shape, so a replay's time does not depend on the image).
+    lat = {"graph": p50_ms(explain, 10), "host": p50_ms(lambda: explain(fused=False), 5)}
+    run.cuda_graph = False   # the same runner, eager
+    lat["eager"] = p50_ms(explain, 5)
+    run.cuda_graph = True
+
+    # Streams of distinct images from an empty cache, capture included: one
+    # call per image, then multi calls alternating the two sets of N.
+    engine.fused_runners.clear()
+    stream = []
+    for i in range(len(pool)):
+        t0 = time.perf_counter()
+        bo_window_saliency(engine, pool[i], pool_segs[i], cfg, seed=SEED + i,
+                           target=pool_targets[i])
+        stream.append((time.perf_counter() - t0) * 1e3)
+    runners = len(engine.fused_runners)
+    engine.fused_runners.clear()
+    multi_stream = []
+    for call in range(8):
+        t0 = time.perf_counter()
+        multi(BO_IMAGES * (call % 2), SEED + 100 * call)
+        multi_stream.append((time.perf_counter() - t0) * 1e3)
+
+    # The GP step alone: fused loops whose classifier is a stub, 10 and 5
+    # iterations, as graphs; the slope is one iteration's GP update,
+    # acquisition, dedup and B1 launch at K=1.
+    def stub(imgs, tgts):
+        prob = torch.sigmoid(imgs[:, imgs.shape[1] // 2, imgs.shape[2] // 2, 0].float())
+        return prob, prob > 0.5
+
+    gp_ms = {}
+    for iters in (10, 5):
+        r = make_fused_window_bo(stub, next_pow2(upper + 1), cfg.n_pre_samples, iters,
+                                 compute_dtype=engine.compute_dtype, device="cuda")
+        args = (image, segments, out.width, target, upper,
+                torch.zeros(r.max_obs, dtype=torch.int64))
+        r(*args)   # eager
+        r(*args)   # capture
+        (g, _, _), = (e for e in r.graphs.values() if e is not None)
+        gp_ms[iters] = replay_ms(g, 20)
+    gp_per_iter = (gp_ms[10] - gp_ms[5]) / 5
+    warm = multi_stream[4:]
+    log(f"[bo timing] {smi}: bo_window_saliency (ResNet-101 224 bf16, {cfg.n_pre_samples} + "
+        f"{cfg.n_iters} evaluations) warm p50 ms: graph {lat['graph']:.2f}, eager "
+        f"{lat['eager']:.2f}, host loop {lat['host']:.2f}; from an empty cache: first call "
+        f"(eager) {first_ms[0]:.2f} ms, second (capture + replay) {first_ms[1]:.2f} ms")
+    log(f"[bo timing] {smi}: stream of {len(pool)} distinct images from an empty cache "
+        f"({runners} runners), one bo_window_saliency each: mean {np.mean(stream):.2f} ms, p50 "
+        f"{np.median(stream):.2f} ms; per call " + ", ".join(f"{v:.1f}" for v in stream))
+    log(f"[bo timing] {smi}: bo_window_saliency_multi N={BO_IMAGES}, 8 calls alternating 2 sets "
+        f"of distinct images from an empty cache: {np.mean(multi_stream) / BO_IMAGES:.2f} ms per "
+        f"image over all 8 calls, {np.median(warm) / BO_IMAGES:.2f} ms per image warm (p50 of "
+        f"calls 5-8); per call " + ", ".join(f"{v:.1f}" for v in multi_stream))
+    log(f"[bo timing] {smi}: one graph replay {replay_events_ms:.3f} ms (CUDA events, no "
+        f"profiler); one replay's trace: device span {span:.3f} ms, busy {union:.3f} ms (union "
+        f"of its intervals), busy share {union / span:.4f} (profiled wall {wall:.3f} ms); GP "
+        f"step (stub classifier, graph) "
+        f"{gp_per_iter:.4f} ms per iteration (10 iterations {gp_ms[10]:.3f} ms, 5 iterations "
+        f"{gp_ms[5]:.3f} ms)")
+
+
+def cli_phase(by_path):
+    """The flagship CLI on the card: main where PIL and matplotlib import
+    (it writes the figures), else explain (the whole computation). Its
+    engine is its own, so its fused runner's call is a first call (eager):
+    B1 11, and B2 4 x (11 + the prediction's forward)."""
+    import tempfile
+
+    from network_interpretation_imagenet_tpu_torch.cli import (
+        bayesian_active_learning_imagenet as cli,
+    )
+
+    try:
+        import matplotlib  # noqa: F401
+        import PIL  # noqa: F401
+
+        missing = None
+    except ImportError as e:
+        missing = str(e)
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--synthetic", "--arch", "resnet101", "--fused", "--out", out]
+        t0 = time.perf_counter()
+        if missing is None:
+            with contextlib.redirect_stdout(io.StringIO()):  # main prints its payload
+                counted(by_path, "cli", lambda: cli.main(argv), 11, 48)
+            with open(f"{out}/bo_result.json") as f:
+                payload = json.load(f)
+            how = "main (PIL and matplotlib import; artifacts written)"
+        else:
+            payload, _ = counted(by_path, "cli", lambda: cli.explain(cli.parse_args(argv)), 11, 48)
+            how = f"explain only, no artifacts ({missing})"
+        seconds = time.perf_counter() - t0
+    if len(payload["bo_xp"]) != 13 or not all(0.0 <= v <= 1.0 for v in payload["bo_yp"]):
+        raise AssertionError(f"cli payload {payload}")
+    log(f"[cli] {how}: {len(payload['bo_xp'])} evaluations, num_segments "
+        f"{payload['num_segments']}, {seconds:.2f} s with the engine build; launches "
+        + json.dumps(by_path["cli"]))
+
+
 def main() -> int:
     import torch
 
@@ -292,6 +670,7 @@ def main() -> int:
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
         bottleneck_chain,
         bottleneck_chain_plain,
+        chain_plan,
     )
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
         masked_batch,
@@ -353,18 +732,30 @@ def main() -> int:
         want = masked_batch_plain(image, seg, firsts, width, dt)
         if not torch.equal(got, want):
             raise AssertionError(f"B1 {dt}: kernel differs from its plain version")
+        # The BO loop's batches: K = 1 and 3 with the width read on the device,
+        # and one image's slice of a larger buffer.
+        width_dev = torch.tensor([width], dtype=torch.int32, device=dev)
+        for k in (1, 3):
+            if not torch.equal(masked_batch(image, seg, firsts[-k:], width_dev, dt),
+                               masked_batch_plain(image, seg, firsts[-k:], width, dt)):
+                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
+        buf = torch.zeros((6, 224, 224, 3), dtype=dt, device=dev)
+        masked_batch(image, seg, firsts[:3], width_dev, dt, out=buf[3:])
+        if not torch.equal(buf[3:], want[:3]) or buf[:3].any():
+            raise AssertionError(f"B1 {dt}: out= slice differs from the default")
     b1_ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50,
                       "b1_masked_batch")
     b1_plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
                                                      torch.bfloat16), 50)
     b1_bytes = MASK_BATCH * 224 * 224 * 3 * 2 + 224 * 224 * (3 * 4 + 4) + MASK_BATCH * 4
     b1_bound_ms = b1_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[B1] K={MASK_BATCH} 224x224x3 S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms "
-        f"(device time), "
+    log(f"[B1] K={MASK_BATCH}, 1 and 3 (width on the device), and an out= slice, 224x224x3 "
+        f"S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms (device time), "
         f"plain {b1_plain_ms:.4f} ms, bound {b1_bound_ms:.4f} ms ({b1_bytes} bytes), "
         f"{b1_bound_ms / b1_ms:.3f} of bound")
 
     # 4. B2 against its plain version at the four ResNet-101 stage shapes
+    small = {b: [0.0, 0.0] for b in BO_BATCHES}  # B2 ms and chain bound per forward
     b2 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "floor_ms": 0.0, "flops": 0, "bytes": 0,
           "block_err": 0.0}
     for batch in B2_BATCHES:
@@ -394,10 +785,21 @@ def main() -> int:
                          f"f32) {plain_ms:.4f} ms; yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms; "
                          f"per block reduce / 3x3 / expand "
                          + " / ".join(f"{u:.1f}" for u in us) + " us")
+            elif batch in BO_BATCHES:  # the BO loop's forwards
+                flops, nbytes, _ = b2_costs(h, c, p, n, batch)
+                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+                ms = time_ms(lambda: bottleneck_chain(x, ws), 20)
+                small[batch] = [v + d for v, d in zip(small[batch], (ms, bound))]
+                grids = [cp.grid for cp in chain_plan(batch, h, h, c, p)]
+                line += (f"; kernel {ms:.4f} ms ({ms / (3 * n) * 1e3:.1f} us per launch), chain "
+                         f"bound {bound:.4f} ms, blocks per launch reduce / 3x3 / expand "
+                         + " / ".join(map(str, grids)))
             log(line)
             del x, ws
     log(f"[B2] {smi}: total per forward of {MASK_BATCH}: kernel {b2['ms']:.4f} ms, yardstick "
-        f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms")
+        f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
+        + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms"
+                    for b, v in small.items()))
     for h, c, p, n in (STAGES_101[0], STAGES_101[3]):
         ws = b2_weights(rng, c, p, 2, torch.float32, dev)
         x = torch.from_numpy(np.abs(rng.randn(4, h, h, c)).astype(np.float32)).to(dev)
@@ -519,16 +921,23 @@ def main() -> int:
     log("[profile] largest other kernels (ms): "
         + json.dumps({k: round(v, 3) for k, v in top}))
 
+    paths = {"random_window": launches}
+    bo_phase(engine, normalized, np.asarray(segments, np.int32), target, smi, paths)
+    cli_phase(paths)
+    by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
+
     kernels = [
         {"name": "masked_batch", "route": "cuda", "source": f"{PKG}/csrc/masked_batch.cu",
          "replaces": "network_interpretation_imagenet_tpu/ops/pallas_masking.py:49",
-         "launches": launches["masked_batch"], "max_abs_err": 0.0, "ms": b1_ms,
+         "launches": sum(by_path["masked_batch"].values()),
+         "launches_by_path": by_path["masked_batch"], "max_abs_err": 0.0, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms, "bound_by": "bytes",
          "library_ms": None},
         {"name": "bottleneck_chain", "route": "cuda",
          "source": f"{PKG}/csrc/bottleneck_chain.cu",
          "replaces": "network_interpretation_imagenet_tpu/ops/pallas_bottleneck.py:105",
-         "launches": launches["bottleneck_chain"], "max_abs_err": b2["block_err"],
+         "launches": sum(by_path["bottleneck_chain"].values()),
+         "launches_by_path": by_path["bottleneck_chain"], "max_abs_err": b2["block_err"],
          "ms": b2["ms"], "plain_ms": b2["plain_ms"], "bound_ms": max(b2_ops_ms, b2_bytes_ms),
          "bound_by": "operations" if b2_ops_ms >= b2_bytes_ms else "bytes",
          "library_ms": None},

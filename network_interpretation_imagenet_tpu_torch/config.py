@@ -1,5 +1,6 @@
 """Configuration (port of ``config.py`` of the JAX package): the dataset
-registry, segmentation settings and the engine's compute dtype."""
+registry, segmentation settings, the engine's compute dtype and the BO
+settings."""
 
 from __future__ import annotations
 
@@ -52,3 +53,17 @@ class SegmentConfig:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class BOConfig:
+    """GP-EI BO settings (reference bayesian_active_learning_imagenet.py:479-486,
+    BayesianOptimization.py:99-192)."""
+
+    n_iters: int = 10
+    n_pre_samples: int = 3
+    alpha: float = 1e-5              # GP noise (reference BO alpha=1e-5)
+    epsilon: float = 1e-7            # duplicate-rejection tolerance
+    greater_is_better: bool = True   # maximize survival probability
+    # The MLL argmax over this grid replaces sklearn's n_restarts_optimizer=10.
+    lengthscale_grid: Tuple[float, ...] = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)

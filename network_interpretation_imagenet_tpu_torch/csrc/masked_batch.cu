@@ -5,6 +5,9 @@
 //
 //   out[k, h, w, c] = cast(image[h, w, c] * [firsts[k] <= seg[h, w] < firsts[k] + width])
 //
+// The width is a kernel argument, or, where `width_dev` is not null, the int32
+// it points to on the device: a captured CUDA graph then serves every width.
+//
 // Windows that run past the last segment clip, as the comparison does by
 // itself. The product is taken in f32 and rounded once (round to nearest
 // even), so the result is bit-identical to window_masks + apply_masks + cast.
@@ -50,8 +53,8 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
 b1_masked_batch(const float* __restrict__ image, const int* __restrict__ seg,
-                const int* __restrict__ firsts, int width, T* __restrict__ out, int hwc, int c,
-                int k_total, int group) {
+                const int* __restrict__ firsts, int width, const int* __restrict__ width_dev,
+                T* __restrict__ out, int hwc, int c, int k_total, int group) {
   __shared__ int lo_s[kMaxGroup];
   const int k0 = blockIdx.y * group;
   const int nk = min(group, k_total - k0);
@@ -61,6 +64,7 @@ b1_masked_batch(const float* __restrict__ image, const int* __restrict__ seg,
   const int i0 = (blockIdx.x * kThreads + threadIdx.x) * kPerThread;
   if (i0 >= hwc) return;
   const int cc = CC > 0 ? CC : c;
+  const int wd = width_dev != nullptr ? __ldg(width_dev) : width;
   const bool full = i0 + kPerThread <= hwc;
   float x[kPerThread];
   int s[kPerThread];
@@ -81,7 +85,7 @@ b1_masked_batch(const float* __restrict__ image, const int* __restrict__ seg,
                    (static_cast<long long>(hwc) * sizeof(T)) % 16 == 0;
   T* dst = out + static_cast<long long>(k0) * hwc + i0;
   for (int k = 0; k < nk; ++k, dst += hwc) {
-    const int lo = lo_s[k], hi = lo + width;
+    const int lo = lo_s[k], hi = lo + wd;
     alignas(16) T v[kPerThread];
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j)
@@ -98,8 +102,9 @@ b1_masked_batch(const float* __restrict__ image, const int* __restrict__ seg,
 }
 
 template <typename T>
-int launch(const void* image, const void* seg, const void* firsts, int width, void* out, int k,
-           int hwc, int c, int group, int grid_x, int grid_y, void* stream) {
+int launch(const void* image, const void* seg, const void* firsts, int width,
+           const void* width_dev, void* out, int k, int hwc, int c, int group, int grid_x,
+           int grid_y, void* stream) {
   if (group < 1 || group > kMaxGroup || grid_y != (k + group - 1) / group ||
       grid_x != (hwc + kPerThread * kThreads - 1) / (kPerThread * kThreads))
     return -3;  // a plan the kernel cannot run
@@ -108,11 +113,12 @@ int launch(const void* image, const void* seg, const void* firsts, int width, vo
   const float* im = static_cast<const float*>(image);
   const int* sg = static_cast<const int*>(seg);
   const int* fs = static_cast<const int*>(firsts);
+  const int* wd = static_cast<const int*>(width_dev);
   T* o = static_cast<T*>(out);
   if (c == 3)
-    b1_masked_batch<T, 3><<<grid, kThreads, 0, s>>>(im, sg, fs, width, o, hwc, c, k, group);
+    b1_masked_batch<T, 3><<<grid, kThreads, 0, s>>>(im, sg, fs, width, wd, o, hwc, c, k, group);
   else
-    b1_masked_batch<T, 0><<<grid, kThreads, 0, s>>>(im, sg, fs, width, o, hwc, c, k, group);
+    b1_masked_batch<T, 0><<<grid, kThreads, 0, s>>>(im, sg, fs, width, wd, o, hwc, c, k, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -120,22 +126,23 @@ int launch(const void* image, const void* seg, const void* firsts, int width, vo
 
 extern "C" {
 
-// image f32[H*W*C], seg i32[H*W], firsts i32[K] (all on the device) ->
-// out[K*H*W*C]; masks go in groups of `group` (at most 64) per block row of
-// the (grid_x, grid_y) grid. Returns cudaGetLastError() after the launch, or
+// image f32[H*W*C], seg i32[H*W], firsts i32[K] (all on the device), width
+// or (when not null) width_dev i32[1] on the device -> out[K*H*W*C]; masks
+// go in groups of `group` (at most 64) per block row of the (grid_x, grid_y)
+// grid. Returns cudaGetLastError() after the launch, or
 // -3 for a plan that does not cover the output.
 int masked_batch_bf16(const void* image, const void* seg, const void* firsts, int width,
-                      void* out, int k, int hwc, int c, int group, int grid_x, int grid_y,
-                      void* stream) {
-  return launch<__nv_bfloat16>(image, seg, firsts, width, out, k, hwc, c, group, grid_x,
-                               grid_y, stream);
+                      const void* width_dev, void* out, int k, int hwc, int c, int group,
+                      int grid_x, int grid_y, void* stream) {
+  return launch<__nv_bfloat16>(image, seg, firsts, width, width_dev, out, k, hwc, c, group,
+                               grid_x, grid_y, stream);
 }
 
 int masked_batch_f32(const void* image, const void* seg, const void* firsts, int width,
-                     void* out, int k, int hwc, int c, int group, int grid_x, int grid_y,
-                     void* stream) {
-  return launch<float>(image, seg, firsts, width, out, k, hwc, c, group, grid_x, grid_y,
-                       stream);
+                     const void* width_dev, void* out, int k, int hwc, int c, int group,
+                     int grid_x, int grid_y, void* stream) {
+  return launch<float>(image, seg, firsts, width, width_dev, out, k, hwc, c, group, grid_x,
+                       grid_y, stream);
 }
 
 }  // extern "C"

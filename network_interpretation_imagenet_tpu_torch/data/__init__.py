@@ -1,1 +1,2 @@
-"""Host-side data transforms."""
+"""Host-side data: the eval transform, the ImageNet-localization and
+image-folder datasets, class names and a synthetic image."""

@@ -16,7 +16,7 @@ import torch
 
 from network_interpretation_imagenet_tpu_torch.ops import _cuda_build, masking
 
-_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ENTRY = {torch.bfloat16: "masked_batch_bf16", torch.float32: "masked_batch_f32"}
 
@@ -45,17 +45,35 @@ def masked_batch_plain(image, segments, firsts, width, out_dtype=torch.bfloat16)
 
 
 def masked_batch(image: torch.Tensor, segments: torch.Tensor, firsts: torch.Tensor,
-                 width: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+                 width, out_dtype=torch.bfloat16, out: torch.Tensor = None) -> torch.Tensor:
     """f32[H, W, C] image, int32[H, W] contiguous labels, int32[K] starts,
-    int width -> ``out_dtype``[K, H, W, C] (bf16 or f32), NHWC contiguous."""
+    width -> ``out_dtype``[K, H, W, C] (bf16 or f32), NHWC contiguous.
+    ``width`` is an int, or an int32 tensor of one element on the image's
+    device, which the kernel reads there (a CUDA graph then holds no width).
+    ``out``, a contiguous tensor of that shape, dtype and device (for example
+    one image's slice of a larger batch), receives the result in place of a
+    new tensor."""
     if image.dim() != 3 or segments.shape != image.shape[:2] or firsts.dim() != 1:
         raise ValueError(f"masked_batch: shapes image {tuple(image.shape)}, segments "
                          f"{tuple(segments.shape)}, firsts {tuple(firsts.shape)}")
+    shape = (firsts.shape[0], *image.shape)
+    if out is not None and (tuple(out.shape) != shape or out.dtype != out_dtype
+                            or out.device != image.device or not out.is_contiguous()):
+        raise ValueError(f"masked_batch: out must be a contiguous {out_dtype} tensor of shape "
+                         f"{shape} on {image.device}, got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
     if image.device.type == "cpu":
-        return masked_batch_plain(image, segments, firsts, width, out_dtype)
-    for name, t, dtype in (("image", image, torch.float32),
-                           ("segments", segments, torch.int32),
-                           ("firsts", firsts, torch.int32)):
+        result = masked_batch_plain(image, segments, firsts, width, out_dtype)
+        return result if out is None else out.copy_(result)
+    checks = [("image", image, torch.float32), ("segments", segments, torch.int32),
+              ("firsts", firsts, torch.int32)]
+    width_dev = width if isinstance(width, torch.Tensor) else None
+    if width_dev is not None:
+        if width_dev.numel() != 1:
+            raise ValueError(f"masked_batch: a width tensor holds one element, got "
+                             f"{tuple(width_dev.shape)}")
+        checks.append(("width", width_dev, torch.int32))
+    for name, t, dtype in checks:
         if t.device != image.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"masked_batch: {name} must be a contiguous {dtype} "
                              f"tensor on {image.device}, got {t.dtype} on {t.device}")
@@ -65,12 +83,14 @@ def masked_batch(image: torch.Tensor, segments: torch.Tensor, firsts: torch.Tens
     k = firsts.shape[0]
     if not 0 < k <= 65535 or h * w * c >= 2**31:
         raise ValueError(f"masked_batch: K={k} or H*W*C={h * w * c} out of range")
-    out = torch.empty((k, h, w, c), dtype=out_dtype, device=image.device)
+    if out is None:
+        out = torch.empty(shape, dtype=out_dtype, device=image.device)
     lib = _cuda_build.library("masked_batch", {e: _SIG for e in _ENTRY.values()})
     rc = getattr(lib, _ENTRY[out_dtype])(
         _cuda_build.ptr(image), _cuda_build.ptr(segments), _cuda_build.ptr(firsts),
-        int(width), _cuda_build.ptr(out), k, h * w * c, c, *launch_plan(k, h * w * c),
-        _cuda_build.stream_ptr(image.device))
+        0 if width_dev is not None else int(width),
+        None if width_dev is None else _cuda_build.ptr(width_dev), _cuda_build.ptr(out), k,
+        h * w * c, c, *launch_plan(k, h * w * c), _cuda_build.stream_ptr(image.device))
     _cuda_build.check(rc, "masked_batch")
     masked_batch.launches += 1
     return out

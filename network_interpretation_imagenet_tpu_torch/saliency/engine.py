@@ -41,6 +41,22 @@ class MaskEvalResult:
         return self.survived.astype(np.int32)
 
 
+def outcomes(logits: torch.Tensor, target) -> torch.Tensor:
+    """f32 [4, B]: survived, preds, prob_target, prob_max (preds as exact f32
+    integers, so one copy brings all four back). ``target`` is an int, or an
+    int64 tensor of one target or of B (gathered on the device, never read
+    by the host)."""
+    logits = logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    preds = torch.argmax(logits, dim=-1)
+    if isinstance(target, torch.Tensor):
+        prob_target = probs.gather(1, target.reshape(-1, 1).expand(probs.shape[0], 1))[:, 0]
+    else:
+        prob_target = probs[:, target]
+    return torch.stack([(preds == target).float(), preds.float(), prob_target,
+                        probs.max(dim=-1).values])
+
+
 class SaliencyEngine:
     """Masked forwards of one classifier, weights folded once on ``device``.
 
@@ -59,6 +75,8 @@ class SaliencyEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.model = FoldedResNet(state_dict, bundle.module.stage_sizes,
                                   self.compute_dtype, self.device)
+        # bo_pipeline.fused_runner's runners (and their CUDA graphs), by static config.
+        self.fused_runners: dict = {}
 
     def _to_device(self, array, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(self.device)
@@ -89,18 +107,17 @@ class SaliencyEngine:
         for off in range(0, firsts_t.shape[0], self.mask_batch):
             imgs = masked_batch(image_t, seg_t, firsts_t[off:off + self.mask_batch],
                                 int(width), self.compute_dtype)
-            outs.append(self._outcomes(self.model(imgs), int(target)))
+            outs.append(outcomes(self.model(imgs), int(target)))
         return outs
 
-    @staticmethod
-    def _outcomes(logits: torch.Tensor, target: int) -> torch.Tensor:
-        """f32 [4, n]: survived, preds, prob_target, prob_max (preds as exact
-        f32 integers, so one copy brings all four back)."""
-        logits = logits.float()
-        probs = torch.softmax(logits, dim=-1)
-        preds = torch.argmax(logits, dim=-1)
-        return torch.stack([(preds == target).float(), preds.float(),
-                            probs[:, target], probs.max(dim=-1).values])
+    @torch.inference_mode()
+    def masked_outcomes(self, images: torch.Tensor, target) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused BO loop's forward: a device batch of masked images in
+        ``compute_dtype`` -> (prob_target f32[B], survived bool[B]) on the
+        device, with no host copy. ``target`` is an int or an int64 tensor of
+        one target or one per image."""
+        out = outcomes(self.model(images), target)
+        return out[2], out[0] > 0.5
 
     def collect(self, handle) -> MaskEvalResult:
         """Wait for an ``*_async`` handle: one device-to-host copy."""

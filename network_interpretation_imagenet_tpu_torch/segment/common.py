@@ -3,6 +3,9 @@ only the Felzenszwalb branch is ported)."""
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
@@ -38,3 +41,16 @@ def segment_image(img_u8: np.ndarray, cfg: SegmentConfig) -> np.ndarray:
         h, w = np.asarray(img_u8).shape[:2]
         scale = max(1.0, 100.0 * (int(h) * int(w)) / (224.0 * 224.0))
     return felzenszwalb(img_u8, scale=scale, sigma=cfg.sigma, min_size=cfg.min_size)
+
+
+def segment_image_batch(displays, cfg: SegmentConfig) -> list:
+    """Segment N display images; a list of int32[H, W] label maps equal to
+    per-image :func:`segment_image` calls. Felzenszwalb's hot path (scipy's
+    smoothing and the native kernel) releases the GIL, so the images fan out
+    over a thread pool of up to 8 workers."""
+    displays = list(displays)
+    workers = min(8, len(displays), os.cpu_count() or 1)
+    if workers <= 1:
+        return [segment_image(d, cfg) for d in displays]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda d: segment_image(d, cfg), displays))

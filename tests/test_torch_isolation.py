@@ -3,7 +3,7 @@
 A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``network_interpretation_imagenet_tpu`` imports every module of the port
 and runs the CPU slice end to end (segment, predict, masked evals,
-heatmap, localization score), in the spirit of
+heatmap, localization score) and one small BO explanation, in the spirit of
 tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
@@ -36,8 +36,9 @@ import network_interpretation_imagenet_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 
-from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
+from network_interpretation_imagenet_tpu_torch.config import BOConfig, SegmentConfig
 from network_interpretation_imagenet_tpu_torch.models import ModelBundle, ResNet
+from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
 from network_interpretation_imagenet_tpu_torch.ops.preprocess import to_display_uint8
 from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
 from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
@@ -57,6 +58,8 @@ out = random_window_saliency(engine, image, segments, num_samples=12, seed=0)
 iou, box = localization_score(out.heatmap, (6, 4, 20, 16))
 assert out.heatmap.shape == (32, 32) and np.isfinite(out.heatmap).all()
 assert 0.0 <= iou <= 1.0
+bo_out, trace = bo_window_saliency(engine, image, segments, BOConfig(n_iters=2, n_pre_samples=2))
+assert len(trace.xp) == 4 and np.isfinite(bo_out.heatmap).all()
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))

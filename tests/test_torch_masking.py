@@ -111,3 +111,37 @@ def test_masked_batch_launch_plan_covers(k, hwc):
     assert grid_x * mb.THREADS * mb.PER_THREAD >= hwc > (grid_x - 1) * mb.THREADS * mb.PER_THREAD
     assert grid_y * group >= k > (grid_y - 1) * group
     assert grid_y <= 65535
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+def test_masked_batch_out_slices_equal_the_default(rng, tdt):
+    """``out=`` writes each image's masks into its slice of one batch buffer,
+    the values the default (a new tensor) gives; a wrong buffer raises."""
+    cases = [_case(rng) for _ in range(2)]
+    firsts = torch.tensor([[0, 5, 9], [2, 3, 11]], dtype=torch.int32)
+    batch = torch.full((6, 16, 16, 3), float("nan"), dtype=tdt)
+    for i, (img, seg) in enumerate(cases):
+        got = masked_batch(torch.from_numpy(img), torch.from_numpy(seg), firsts[i], 4, tdt,
+                           out=batch[3 * i:3 * i + 3])
+        assert got.data_ptr() == batch[3 * i].data_ptr()
+    want = torch.cat([masked_batch(torch.from_numpy(img), torch.from_numpy(seg), firsts[i], 4, tdt)
+                      for i, (img, seg) in enumerate(cases)])
+    assert torch.equal(batch, want)
+    img, seg = (torch.from_numpy(a) for a in cases[0])
+    for bad in (torch.empty((2, 16, 16, 3), dtype=tdt),                       # shape
+                torch.empty((3, 16, 16, 3), dtype=torch.float16),             # dtype
+                torch.empty((3, 16, 3, 16), dtype=tdt).transpose(2, 3)):      # not contiguous
+        with pytest.raises(ValueError):
+            masked_batch(img, seg, firsts[0], 4, tdt, out=bad)
+
+
+@pytest.mark.parametrize("width_shape", [(), (1,)])
+def test_masked_batch_width_tensor_equals_int(rng, width_shape):
+    """A width given as an int32 tensor (which the kernel reads on the
+    device) gives what the int gives."""
+    img, seg = (torch.from_numpy(a) for a in _case(rng))
+    firsts = torch.tensor([0, 5, 9, 13], dtype=torch.int32)
+    for tdt in (torch.bfloat16, torch.float32):
+        want = masked_batch(img, seg, firsts, 4, tdt)
+        got = masked_batch(img, seg, firsts, torch.full(width_shape, 4, dtype=torch.int32), tdt)
+        assert torch.equal(got, want)
