@@ -18,8 +18,10 @@ hand-written kernel against its plain PyTorch version on the card:
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
      N=8 loop's), 32 and 256 (and f32 at two shapes); per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
-     block and a bf16 cuDNN yardstick; the built library's SASS must hold
-     HGMMA (wgmma) instructions;
+     block and a bf16 cuDNN yardstick; at the BO's batches the same
+     yardstick eager, and (last of all, [B2 graphs]) with the kernel as CUDA
+     graph replays; the built library's SASS must hold HGMMA (wgmma)
+     instructions;
   5. the random-window path: Felzenszwalb -> predict_one ->
      random_window_saliency (1024 masks) -> localization_score, with the
      launch counters reset just before and read just after, then
@@ -39,7 +41,24 @@ hand-written kernel against its plain PyTorch version on the card:
      16 distinct images from an empty cache (single calls, and N=8 calls),
      the device's busy share of one replay, the GP step per iteration;
   8. the flagship CLI on the card (main, or explain where PIL or matplotlib
-     is missing), counters held (B1 11, B2 48).
+     is missing), counters held (B1 11, B2 48);
+  9. [gen]: the random-mask generator's compute (100 window masks and the
+     minimal-mask threshold bank) on its own engine (B1 1, B2 12), and its
+     parts timed warm;
+ 10. [resnet18]: the CLIs' default model, ResNet-18 (no B2): its bf16
+     folded plan against the plain eval-mode net in f32, and the
+     generator's compute with no --arch (B1 1, B2 0);
+ 11. [knockout]: knockout_saliency, 1024 masks at M = 1 and 5 (B1 0, B2 16
+     each; the heatmap against the bank-free sum), and masked evals/s;
+ 12. [multi]: eval_window_masks_multi, N=8 x K=128 (B1 8, B2 16), every
+     chunk the model receives bit-exact against masked_batch_plain, survive
+     agreement with the single-image calls, evals/s;
+ 13. [gp]: the Kronecker pixel GP (fit + posterior at 224x224, and N=8 in one
+     batch) and the variational GP (30 steps, 4,096 pixels, 50,176
+     predicted) on the card against the CPU, run with TF32 allowed so that
+     the GP's own full-f32 guard is what holds: the same lengthscale, errors
+     within stated tolerances, times and the card's busy time;
+ 14. [gp cli]: gp_superpixel_data_imagenet's compute end to end (B1 1, B2 8).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -69,6 +88,14 @@ B2_F32_TOL = 1e-4            # f32 instance: summation order only
 BO_IMAGES = 8                # bo_window_saliency_multi's N
 BO_BATCHES = (1, 3, 8, 24)   # the BO loops' forwards: single image, and N=8 images
 BO_SCORE_TOL = 0.05          # a BO score vs the engine's at another batch (bf16 rounding)
+MULTI_K = 128                # masks per image of the N=8 multi-image window grid
+# GP card vs CPU on this script's inputs. Errors read on an H100 with full
+# f32 products: Kronecker 3.1e-5, -ELBO 1.5e-4, p(y=1) 5.9e-4; with the
+# variational fit's backward left to TF32, p(y=1) 1.6e-3 and -ELBO 2.1e-4.
+GP_TOL = 1e-4                # Kronecker GP: relative to the tensor's scale
+VGP_LOSS_TOL = 5e-4          # variational GP's -ELBO history: relative
+VGP_PROB_TOL = 1e-3          # its p(y=1): absolute
+R18_TOL = 2e-2               # ResNet-18 bf16 plan vs plain f32 net: x max|logit| (2^-8 = 3.9e-3)
 PKG = "network_interpretation_imagenet_tpu_torch"
 
 
@@ -262,6 +289,44 @@ def cudnn_chain(x, ws):
         return y
 
     return run
+
+
+def graphed(fn):
+    """``fn`` captured as one CUDA graph (after two warm-up calls on a side
+    stream); time its ``replay`` for device time without Python's launch cost."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def busy_ms(fn):
+    """One call of ``fn`` under torch.profiler: (wall ms to the end of a
+    device sync, ms covered by the union of its device intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    union, reach = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA):
+        if b > reach:
+            union += b - max(a, reach)
+            reach = b
+    return wall * 1e3, union / 1e3
 
 
 def device_breakdown(fn):
@@ -611,6 +676,7 @@ def bo_phase(engine, image, segments, target, smi, by_path):
         f"step (stub classifier, graph) "
         f"{gp_per_iter:.4f} ms per iteration (10 iterations {gp_ms[10]:.3f} ms, 5 iterations "
         f"{gp_ms[5]:.3f} ms)")
+    return pool[:BO_IMAGES], pool_segs[:BO_IMAGES], pool_targets[:BO_IMAGES]
 
 
 def cli_phase(by_path):
@@ -649,6 +715,359 @@ def cli_phase(by_path):
     log(f"[cli] {how}: {len(payload['bo_xp'])} evaluations, num_segments "
         f"{payload['num_segments']}, {seconds:.2f} s with the engine build; launches "
         + json.dumps(by_path["cli"]))
+
+
+def quiet(fn):
+    """Runs ``fn`` with its standard output (a CLI's prints) swallowed."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def gen_phase(engine, smi, by_path):
+    """The random-mask generator's compute (cli/generate_gp_training_data_imagenet)
+    on the synthetic image, ResNet-101 bf16 on its own engine: the prediction,
+    100 window masks (one chunk) and minimal_mask_search's one bank forward:
+    B1 1, B2 4 x 3. Its parts are then timed warm on the main engine."""
+    import tempfile
+
+    from network_interpretation_imagenet_tpu_torch.cli import common
+    from network_interpretation_imagenet_tpu_torch.cli import (
+        generate_gp_training_data_imagenet as gen,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
+        minimal_mask_search,
+        random_window_saliency,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = gen.parse_args(["--synthetic", "--arch", "resnet101", "--out", tmp])
+        t0 = time.perf_counter()
+        payload, result = counted(by_path, "gen", lambda: quiet(lambda: gen.compute(args)), 1, 12)
+        seconds = time.perf_counter() - t0
+    out, thr = result["out"], result["threshold"]
+    levels, keep = payload["levels"], payload["keeps_prediction"]
+    if not (np.isfinite(out.heatmap).all() and len(levels) == len(keep) > 0
+            and (thr is None or thr in levels)):
+        raise AssertionError(f"gen payload {payload}")
+    image = common.resolve_image(args)[0]
+    target, segments = payload["target"], result["segments"]
+    parts = {"predict": p50_ms(lambda: engine.predict_one(image), 3),
+             f"{args.num_mask_samples} window masks": p50_ms(lambda: random_window_saliency(
+                 engine, image, segments, num_samples=args.num_mask_samples, target=target), 3),
+             f"bank of {len(levels)} levels": p50_ms(lambda: minimal_mask_search(
+                 engine, image, out.heatmap, target), 3)}
+    log(f"[gen] {smi}: compute {seconds * 1e3:.1f} ms with its engine build; S={out.num_segments} "
+        f"survived {payload['correct_pred_count']}/{args.num_mask_samples}; {len(levels)} levels, "
+        f"threshold {thr}, {sum(keep)} keep the prediction; launches {json.dumps(by_path['gen'])}; "
+        "warm parts on the main engine (p50 ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+
+def resnet18_phase(normalized, segments, firsts, width, smi, by_path):
+    """The CLIs' default model, ResNet-18 (BasicBlock stages: every block is
+    a cuDNN conv, no B2). Its bf16 FoldedResNet against the plain eval-mode
+    ResNet in f32 on 32 masked images of the main path: logits within
+    R18_TOL of their scale, and the same argmax wherever the plain net's
+    top two stand further apart than twice that error. Then the generator's
+    compute with no --arch: B1 1, B2 0."""
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import (
+        generate_gp_training_data_imagenet as gen,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import FoldedResNet, create_model
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch_plain
+
+    dev = torch.device("cuda")
+    bundle = create_model("resnet18", "imagenet")
+    sd = bundle.init(SEED)
+    folded = FoldedResNet(sd, bundle.module.stage_sizes, torch.bfloat16, dev)
+    net = bundle.module
+    net.load_state_dict(sd)
+    net = net.eval().to(dev)
+    x = masked_batch_plain(torch.from_numpy(normalized).to(dev), torch.from_numpy(segments).to(dev),
+                           torch.from_numpy(firsts[:32]).to(dev), width, torch.float32)
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        got, want = folded(xb), net(x)
+        ms = {"folded bf16": time_ms(lambda: folded(xb), 10), "plain f32": time_ms(lambda: net(x), 10)}
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    top2 = torch.topk(want, 2).values
+    held = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    if not torch.isfinite(got).all() or err > R18_TOL * scale or not same[held].all():
+        raise AssertionError(f"ResNet-18: folded bf16 vs plain f32 err {err} (max |logit| "
+                             f"{scale}), argmax equal on {int(same[held].sum())} of "
+                             f"{int(held.sum())} held images")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = gen.parse_args(["--synthetic", "--out", tmp])
+        if args.arch != "resnet18":
+            raise AssertionError(f"the CLIs' default arch is {args.arch}")
+        t0 = time.perf_counter()
+        payload, result = counted(by_path, "gen_resnet18",
+                                  lambda: quiet(lambda: gen.compute(args)), 1, 0)
+        seconds = time.perf_counter() - t0
+    levels, keep = payload["levels"], payload["keeps_prediction"]
+    if not (np.isfinite(result["out"].heatmap).all() and len(levels) == len(keep) > 0):
+        raise AssertionError(f"gen (default arch) payload {payload}")
+    log(f"[resnet18] {smi}: folded bf16 vs plain f32, 32 masked images: max logit err {err:.4g} "
+        f"(max |logit| {scale:.4g}, {err / scale:.3g} of it), argmax equal on "
+        f"{int(same[held].sum())}/{int(held.sum())} held images ({int(same.sum())}/32 in all); "
+        f"forward of 32 (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; generator compute with no --arch {seconds * 1e3:.1f} ms with its engine build, "
+        f"{len(levels)} levels, threshold {result['threshold']}; launches "
+        + json.dumps(by_path["gen_resnet18"]))
+
+
+def knockout_phase(engine, image, segments, target, smi, by_path):
+    """knockout_saliency with the target given, 1024 masks at M = 1 and 5:
+    4 chunks of 256, each built by plain torch ops (no B1) and run through
+    B2 in all 4 stages: B1 0, B2 16 for each M. Then the masked evals/s of
+    eval_knockout_masks alone (median of 3)."""
+    from network_interpretation_imagenet_tpu_torch.ops import aggregate
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import knockout_saliency
+
+    chunks = -(-NUM_SAMPLES // MASK_BATCH)
+    parts = []
+    for m in (1, 5):
+        t0 = time.perf_counter()
+        ko = counted(by_path, f"knockout_m{m}", lambda: knockout_saliency(
+            engine, image, segments, NUM_SAMPLES, num_knockout=m, seed=SEED, target=target),
+            0, 4 * chunks)
+        wall = (time.perf_counter() - t0) * 1e3
+        ids = ko.knock_ids
+        if ids.shape != (NUM_SAMPLES, m) or not (0 <= ids.min() and ids.max() < ko.num_segments):
+            raise AssertionError(f"knockout M={m}: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
+        heat = aggregate.summed_knockout_labels_np(segments, ids, ko.eval.survived)
+        if not np.array_equal(heat, ko.heatmap):
+            raise AssertionError(f"knockout M={m}: heatmap differs from the bank-free sum")
+        ts = []
+        engine.eval_knockout_masks(image, segments, ids, target)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.eval_knockout_masks(image, segments, ids, target)
+            ts.append(time.perf_counter() - t0)
+        parts.append(f"M={m}: {NUM_SAMPLES / float(np.median(ts)):.1f} masked evals/s, "
+                     f"knockout_saliency {wall:.1f} ms (first call, host mask bank included), "
+                     f"survived {int(ko.eval.survived.sum())}/{NUM_SAMPLES}, launches "
+                     + json.dumps(by_path[f"knockout_m{m}"]))
+    log(f"[knockout] {smi}: ResNet-101 224 bf16, mask_batch {MASK_BATCH}: " + "; ".join(parts))
+
+
+def multi_phase(engine, images, segs, targets, single_rate, smi, by_path):
+    """eval_window_masks_multi over N=8 images x K=128 (4 chunks of 256,
+    two image runs each: B1 8, B2 16). Every chunk the model receives is
+    held bit for bit against masked_batch_plain of its rows; survive labels
+    are compared with 8 single-image calls (reported: bf16 at another batch
+    composition may round otherwise)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch_plain
+
+    n, k = len(images), MULTI_K
+    widths = np.array([int(0.4 * (int(g.max()) + 1)) for g in segs], np.int32)
+    firsts = np.stack([masking.sample_window_starts_host(SEED + i, k, int(segs[i].max()) + 1,
+                                                         widths[i]) for i in range(n)])
+    model, batches = engine.model, []
+
+    def recording(x, plain=False):
+        batches.append(x.clone())
+        return model(x, plain)
+
+    image_of = np.repeat(np.arange(n), k)
+    starts = range(0, n * k, MASK_BATCH)
+    runs = sum(len(set(image_of[off:off + MASK_BATCH])) for off in starts)  # B1 launches
+    engine.model = recording
+    try:
+        results = counted(by_path, "multi_window", lambda: engine.eval_window_masks_multi(
+            images, segs, firsts, widths, targets), runs, 4 * len(starts))
+    finally:
+        engine.model = model
+    dev = torch.device("cuda")
+    flat = firsts.reshape(-1)
+    for c, got in enumerate(batches):
+        rows = range(c * MASK_BATCH, min((c + 1) * MASK_BATCH, n * k))
+        want = torch.cat([masked_batch_plain(
+            torch.from_numpy(images[i]).to(dev), torch.from_numpy(segs[i]).to(dev),
+            torch.from_numpy(flat[[r for r in rows if image_of[r] == i]]).to(dev),
+            int(widths[i]), engine.compute_dtype) for i in sorted(set(image_of[list(rows)]))])
+        if not torch.equal(got, want):
+            raise AssertionError(f"multi: chunk {c}'s B1 batch differs from masked_batch_plain")
+    singles = [engine.eval_window_masks(images[i], segs[i], firsts[i], int(widths[i]), targets[i])
+               for i in range(n)]
+    agree = float(np.mean([np.mean(r.survived == s.survived) for r, s in zip(results, singles)]))
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.eval_window_masks_multi(images, segs, firsts, widths, targets)
+        ts.append(time.perf_counter() - t0)
+    rate = n * k / float(np.median(ts))
+    log(f"[multi] {smi}: eval_window_masks_multi N={n} x K={k}, mask_batch {MASK_BATCH}: "
+        f"launches {json.dumps(by_path['multi_window'])}; {len(batches)} chunk batches equal "
+        f"masked_batch_plain bit for bit; survive agreement with {n} single-image calls "
+        f"{agree:.4f}; {rate:.1f} masked evals/s (single image, 1024 masks: {single_rate:.1f})")
+    return [aggregate.summed_superpixel_labels_np(segs[i], firsts[i], widths[i],
+                                                  results[i].survived) for i in range(n)]
+
+
+def gp_phase(heat, heats, smi):
+    """gp_checks with TF32 allowed for the process's matmuls, so that each
+    GP function's own full-f32 guard is what keeps its products (and the
+    fits' backward) in f32; the guards must leave the setting as they found
+    it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gp_checks(heat, heats, smi)
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("a GP function left TF32 switched off")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def gp_checks(heat, heats, smi):
+    """The pixel-GP surrogates at full size on the card against the CPU:
+    the Kronecker GP's fit_adam + posterior on one 224^2 heatmap (the same
+    lengthscale, unless the CPU's best two stand within twice the sweep's
+    card-vs-CPU error; mean and variance within GP_TOL of their scale),
+    fit_posterior_batch on N=8 heatmaps, and the variational GP's 30 Adam
+    steps on 4,096 pixels + predict_proba over all 50,176 (losses within
+    VGP_LOSS_TOL relative, probabilities within VGP_PROB_TOL)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli.gp_classification import training_points
+    from network_interpretation_imagenet_tpu_torch.gp import kron, variational
+
+    def rel(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    heat = heat.astype(np.float32)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        def kron_fit(d=d):
+            params, losses = kron.fit_adam(heat, device=d)
+            return params, losses, *kron.posterior(params, heat, device=d)
+
+        kron_fit()   # warm-up
+        runs[d] = timed(kron_fit)
+    kron_wall, kron_busy = busy_ms(lambda: kron.posterior(kron.fit_adam(heat, device="cuda")[0],
+                                                          heat, device="cuda"))
+    (p_card, l_card, m_card, v_card), card_ms = runs["cuda"]
+    (p_cpu, l_cpu, m_cpu, v_cpu), cpu_ms = runs["cpu"]
+    scores = {d: kron._sweep(*kron._factored(kron.LENGTHSCALE_GRID, *heat.shape, d),
+                             torch.from_numpy(heat).to(d)[None])[0][0].cpu().double()
+              for d in ("cuda", "cpu")}
+    score_err = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    best2 = torch.sort(scores["cpu"]).values[:2]
+    held = (best2[1] - best2[0]).item() > 2 * score_err
+    same_ls = float(p_card.log_lengthscale) == float(p_cpu.log_lengthscale)
+    errs = {"mean": rel(m_card, m_cpu), "var": rel(v_card, v_cpu), "losses": rel(l_card, l_cpu)}
+    if (held and not same_ls) or max(errs.values()) > GP_TOL:
+        raise AssertionError(f"Kronecker GP: card vs CPU lengthscale {same_ls} (held {held}), "
+                             f"errors {errs}")
+    log(f"[gp] {smi}: Kronecker GP fit_adam (20 steps) + posterior at 224x224: card "
+        f"{card_ms:.2f} ms, CPU {cpu_ms:.2f} ms; lengthscale "
+        f"{np.exp(float(p_card.log_lengthscale)):g} on both "
+        + ("(held" if held else "(a near-tie, not held") + f": best two -MLL "
+        f"{best2[0].item():.2f} / {best2[1].item():.2f}, sweep err {score_err:.3g}); max rel err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; one card call under the profiler: wall {kron_wall:.2f} ms, device busy "
+        f"{kron_busy:.3f} ms (union of its intervals)")
+
+    ys = np.stack(heats).astype(np.float32)
+    batch = {}
+    for d in ("cuda", "cpu"):
+        kron.fit_posterior_batch(ys, device=d)
+        batch[d] = timed(lambda d=d: kron.fit_posterior_batch(ys, device=d))
+    (pb, mb, vb, lb), batch_ms = batch["cuda"]
+    (pc, mc, vc, _), batch_cpu_ms = batch["cpu"]
+    same = sum(float(a.log_lengthscale) == float(b.log_lengthscale) for a, b in zip(pb, pc))
+    berr = {"mean": rel(mb, mc), "var": rel(vb, vc)}
+    if max(berr.values()) > GP_TOL:
+        raise AssertionError(f"Kronecker GP batch: card vs CPU errors {berr}")
+    log(f"[gp] {smi}: fit_posterior_batch N={len(ys)} at 224x224: card {batch_ms:.2f} ms "
+        f"({batch_ms / len(ys):.2f} ms per image), CPU {batch_cpu_ms:.2f} ms; same lengthscale "
+        f"for {same}/{len(ys)} images; max rel err mean {berr['mean']:.3g}, var {berr['var']:.3g}")
+
+    n = heat.shape[0]
+    x, y = training_points(heat, heat > 0, "median", 4096, SEED)
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    all_x = np.stack([yy.ravel(), xx.ravel()], -1).astype(np.float32)
+    vgp = {}
+    for d in ("cuda", "cpu"):
+        def vgp_fit(d=d):
+            model, losses = variational.fit_adam(
+                variational.init_model(n, 10, n / 8.0, device=d), x, y, iters=30)
+            return losses, variational.predict_proba(model, all_x)
+
+        vgp_fit()
+        vgp[d] = timed(vgp_fit)
+    vgp_wall, vgp_busy = busy_ms(lambda: vgp_fit("cuda"))
+    (vl_card, pr_card), vgp_ms = vgp["cuda"]
+    (vl_cpu, pr_cpu), vgp_cpu_ms = vgp["cpu"]
+    loss_err = rel(vl_card, vl_cpu)
+    prob_err = (pr_card.cpu() - pr_cpu).abs().max().item()
+    if not (torch.isfinite(pr_card).all() and loss_err <= VGP_LOSS_TOL
+            and prob_err <= VGP_PROB_TOL):
+        raise AssertionError(f"variational GP: card vs CPU loss err {loss_err}, "
+                             f"prob err {prob_err}")
+    log(f"[gp] {smi}: variational GP fit_adam (30 steps, {len(x)} pixels, 10x10 inducing) + "
+        f"predict_proba over {n * n} pixels: card {vgp_ms:.2f} ms, CPU {vgp_cpu_ms:.2f} ms; "
+        f"max rel loss err {loss_err:.3g}, max prob err {prob_err:.3g}; -ELBO "
+        f"{vl_card[0].item():.2f} -> {vl_card[-1].item():.2f}; one card call under the "
+        f"profiler: wall {vgp_wall:.2f} ms, device busy {vgp_busy:.3f} ms")
+
+
+def b2_graph_phase(cases, smi):
+    """B2 and its bf16 cuDNN yardstick at the BO's batches as CUDA graph
+    replays: eager cuDNN at B <= 24 is bound by Python's launches, a replay
+    shows each chain's device time. Run last, so that the captures' memory
+    pools cannot touch the paths' timings."""
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+
+    per_batch = {}
+    for batch, x, ws in cases:
+        b2 = time_ms(graphed(lambda: bottleneck_chain(x, ws)).replay, 20)
+        cudnn = time_ms(graphed(cudnn_chain(x, ws)).replay, 20)
+        per_batch[batch] = [v + d for v, d in zip(per_batch.get(batch, (0.0, 0.0)), (b2, cudnn))]
+    log(f"[B2 graphs] {smi}: per ResNet-101 forward (4 chains) as CUDA graph replays: "
+        + "; ".join(f"B={b}: kernel {v[0]:.4f} ms, bf16 cuDNN {v[1]:.4f} ms"
+                    for b, v in per_batch.items()))
+
+
+def gp_cli_phase(by_path):
+    """gp_superpixel_data_imagenet's compute end to end on the synthetic
+    image (ResNet-101 bf16, its own engine, 100 window masks, the Kronecker
+    GP on the card): B1 1, B2 4 x 2."""
+    import tempfile
+
+    from network_interpretation_imagenet_tpu_torch.cli import gp_superpixel_data_imagenet as gps
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = gps.parse_args(["--synthetic", "--arch", "resnet101", "--out", tmp])
+        t0 = time.perf_counter()
+        payload, result = counted(by_path, "gp_cli", lambda: quiet(lambda: gps.compute(args)),
+                                  1, 8)
+        seconds = time.perf_counter() - t0
+    if not (np.isfinite(result["mean"]).all() and np.isfinite(result["var"]).all()
+            and payload["gp_loss_last"] < payload["gp_loss_first"]):
+        raise AssertionError(f"gp cli payload {payload}")
+    log(f"[gp cli] compute {seconds:.2f} s with its engine build; launches "
+        f"{json.dumps(by_path['gp_cli'])}; payload {json.dumps(payload)}")
 
 
 def main() -> int:
@@ -755,7 +1174,8 @@ def main() -> int:
         f"{b1_bound_ms / b1_ms:.3f} of bound")
 
     # 4. B2 against its plain version at the four ResNet-101 stage shapes
-    small = {b: [0.0, 0.0] for b in BO_BATCHES}  # B2 ms and chain bound per forward
+    small = {b: [0.0, 0.0, 0.0] for b in BO_BATCHES}  # B2 ms, chain bound, cuDNN per forward
+    small_cases = []   # (batch, x, ws) of the BO's batches, for the graph yardstick at the end
     b2 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "floor_ms": 0.0, "flops": 0, "bytes": 0,
           "block_err": 0.0}
     for batch in B2_BATCHES:
@@ -789,17 +1209,20 @@ def main() -> int:
                 flops, nbytes, _ = b2_costs(h, c, p, n, batch)
                 bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
                 ms = time_ms(lambda: bottleneck_chain(x, ws), 20)
-                small[batch] = [v + d for v, d in zip(small[batch], (ms, bound))]
+                cudnn_ms = time_ms(cudnn_chain(x, ws), 20)
+                small[batch] = [v + d for v, d in zip(small[batch], (ms, bound, cudnn_ms))]
+                small_cases.append((batch, x, ws))
                 grids = [cp.grid for cp in chain_plan(batch, h, h, c, p)]
                 line += (f"; kernel {ms:.4f} ms ({ms / (3 * n) * 1e3:.1f} us per launch), chain "
-                         f"bound {bound:.4f} ms, blocks per launch reduce / 3x3 / expand "
+                         f"bound {bound:.4f} ms, yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms, "
+                         "blocks per launch reduce / 3x3 / expand "
                          + " / ".join(map(str, grids)))
             log(line)
             del x, ws
     log(f"[B2] {smi}: total per forward of {MASK_BATCH}: kernel {b2['ms']:.4f} ms, yardstick "
         f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
-        + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms"
-                    for b, v in small.items()))
+        + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms, "
+                    f"yardstick bf16 cuDNN {v[2]:.4f} ms (eager)" for b, v in small.items()))
     for h, c, p, n in (STAGES_101[0], STAGES_101[3]):
         ws = b2_weights(rng, c, p, 2, torch.float32, dev)
         x = torch.from_numpy(np.abs(rng.randn(4, h, h, c)).astype(np.float32)).to(dev)
@@ -922,8 +1345,17 @@ def main() -> int:
         + json.dumps({k: round(v, 3) for k, v in top}))
 
     paths = {"random_window": launches}
-    bo_phase(engine, normalized, np.asarray(segments, np.int32), target, smi, paths)
+    seg_np = np.asarray(segments, np.int32)
+    pool, pool_segs, pool_targets = bo_phase(engine, normalized, seg_np, target, smi, paths)
     cli_phase(paths)
+    gen_phase(engine, smi, paths)
+    resnet18_phase(normalized, seg_np, out.firsts, out.width, smi, paths)
+    knockout_phase(engine, normalized, seg_np, target, smi, paths)
+    heats = multi_phase(engine, pool, pool_segs, pool_targets, rates[MASK_BATCH], smi, paths)
+    gp_phase(out.heatmap, heats, smi)
+    gp_cli_phase(paths)
+    b2_graph_phase(small_cases, smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
 
     kernels = [

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (port of the part of ``cli/common.py`` that the
-flagship BO CLI uses): flags, image and engine resolution, artifact writers.
+ported CLIs use): flags, image and engine resolution, artifact writers.
 
 The flag names are the JAX package's. ``--device {cuda,cpu}`` takes the
 place of ``--platform``; the flags that served only XLA's compilation cache,
@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from network_interpretation_imagenet_tpu_torch.config import DATASETS, SegmentConfig
-
-ARCHS = ("resnet50", "resnet101", "resnet152")
+from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import ARCHS
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -37,7 +36,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="index of the evaluation image, 1-based (reference flag)")
 
     g = p.add_argument_group("model")
-    g.add_argument("--arch", "-a", default="resnet101", choices=ARCHS)
+    g.add_argument("--arch", "-a", default="resnet18", choices=ARCHS)
     g.add_argument("--ckpt", default=None,
                    help="torch state dict (.pth / .pth.tar, torchvision keys) to load")
     g.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
@@ -54,7 +53,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="default: the reference's 50 for imagenet")
 
     g = p.add_argument_group("masks")
+    g.add_argument("--num_mask_samples", type=int, default=100)
     g.add_argument("--window_fraction", type=float, default=0.4)
+    g.add_argument("--num_masked_superpixels", type=int, default=1)
 
     g = p.add_argument_group("output")
     g.add_argument("--out", default="./outputs", help="artifact directory")
@@ -72,6 +73,16 @@ def add_bo_flags(p: argparse.ArgumentParser) -> None:
                    help="run the fused on-device BO loop (a CUDA graph on the card)")
     g.add_argument("--no-fused", dest="fused", action="store_false",
                    help="use the host-driven BO loop (default, as in the JAX package)")
+
+
+def add_gp_flags(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("gp surrogate")
+    g.add_argument("--gp-mode", default="train", choices=["train", "eval", "train+eval"],
+                   help="reference gp_regression.py Train/Eval switch")
+    g.add_argument("--grid_size", type=int, default=30)
+    g.add_argument("--gp_iters", type=int, default=20)
+    g.add_argument("--gp_lr", type=float, default=0.1)
+    g.add_argument("--gp-ckpt", default="./gp_saved_checkpoints")
 
 
 def segment_config(args) -> SegmentConfig:
@@ -162,6 +173,11 @@ def _imwrite(path: str, bgr: np.ndarray) -> None:
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     Image.fromarray(bgr[:, :, ::-1].copy() if bgr.ndim == 3 else bgr).save(path)
+
+
+def save_mask_npz(path: str, **arrays) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **arrays)
 
 
 def save_mask_pngs(out_dir: str, masks: np.ndarray, labels: np.ndarray) -> None:

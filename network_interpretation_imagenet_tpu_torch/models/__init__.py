@@ -1,7 +1,7 @@
 """Model registry: ``create_model(arch, dataset, num_classes, dtype)``.
 
-Port of ``models/__init__.py`` of the JAX package for the Bottleneck
-ResNets. The bundle carries the module (f32 parameters, torchvision keys)
+Port of ``models/__init__.py`` of the JAX package for the ImageNet ResNets
+(18/34/50/101/152). The bundle carries the module (f32 parameters, torchvision keys)
 and the compute dtype the engine defaults to; ``init(seed)`` makes a seeded
 random ``state_dict``.
 """
@@ -15,6 +15,9 @@ import torch
 
 from network_interpretation_imagenet_tpu_torch.config import DATASETS
 from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import (  # noqa: F401
+    ARCHS,
+    BasicBlock,
+    Bottleneck,
     FoldedResNet,
     ResNet,
     create_resnet,
@@ -37,10 +40,10 @@ class ModelBundle:
 
 def create_model(arch: str, dataset: str = "imagenet", num_classes: Optional[int] = None,
                  dtype: torch.dtype = torch.float32) -> ModelBundle:
-    """``resnet50`` / ``resnet101`` / ``resnet152`` for ``dataset``'s input size."""
+    """``resnet18`` / ``34`` / ``50`` / ``101`` / ``152`` for ``dataset``'s input size."""
     spec = DATASETS[dataset]
     nc = num_classes if num_classes is not None else spec.num_classes
-    if arch not in ("resnet50", "resnet101", "resnet152"):
+    if arch not in ARCHS:
         raise ValueError(f"unknown arch: {arch}")
     return ModelBundle(name=arch, module=create_resnet(arch, num_classes=nc),
                        input_size=spec.image_size, input_channels=spec.channels,

@@ -1,13 +1,15 @@
-"""ImageNet ResNet, Bottleneck family (ResNet-50/101/152).
+"""ImageNet ResNets: BasicBlock (ResNet-18/34) and Bottleneck (ResNet-50/101/152).
 
 Port of ``models/resnet_imagenet.py`` of the JAX package: torchvision's v1.5
 architecture (post-activation, stride on the 3x3) with torchvision's
 ``state_dict`` key names. :class:`ResNet` holds the parameters and its
 ``forward`` is the plain eval-mode network. :class:`FoldedResNet` is the
 inference plan the engine runs: BatchNorm folded into every convolution once
-when it is built, activations kept NHWC in memory (channels_last), the stem
-and the first (projection) block of each stage as plain torch ops, and each
-stage's remaining stride-1 identity blocks as one ``bottleneck_chain`` call.
+when it is built, activations kept NHWC in memory (channels_last). In a
+Bottleneck net the stem and the first (projection) block of each stage are
+plain torch ops, and each stage's remaining stride-1 identity blocks are one
+``bottleneck_chain`` call. A BasicBlock net has no bottleneck, and no TPU
+kernel covers its blocks either: all of them are plain torch ops (cuDNN).
 """
 
 from __future__ import annotations
@@ -25,6 +27,29 @@ from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_plain,
 )
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False) -> None:
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = (
+            nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                          nn.BatchNorm2d(planes))
+            if downsample else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + identity)
 
 
 class Bottleneck(nn.Module):
@@ -55,9 +80,11 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """torchvision-compatible Bottleneck ResNet; ``forward`` takes NHWC."""
+    """torchvision-compatible ResNet over ``block`` (:class:`BasicBlock` or
+    :class:`Bottleneck`); ``forward`` takes NHWC."""
 
-    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000) -> None:
+    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
+                 block: type = Bottleneck) -> None:
         super().__init__()
         self.stage_sizes = tuple(int(n) for n in stage_sizes)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -68,9 +95,9 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(num_blocks):
                 stride = 2 if stage > 0 and b == 0 else 1
-                ds = stride != 1 or inplanes != planes * Bottleneck.expansion
-                blocks.append(Bottleneck(inplanes, planes, stride, ds))
-                inplanes = planes * Bottleneck.expansion
+                ds = stride != 1 or inplanes != planes * block.expansion
+                blocks.append(block(inplanes, planes, stride, ds))
+                inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(inplanes, num_classes)
 
@@ -104,14 +131,22 @@ class ResNet(nn.Module):
         return sd
 
 
+# Stage sizes of the Bottleneck nets (whose stages B2 runs) and of the BasicBlock nets.
 _CONFIGS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
 }
+_BASIC_CONFIGS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+}
+ARCHS = tuple(_BASIC_CONFIGS) + tuple(_CONFIGS)
 
 
 def create_resnet(arch: str, num_classes: int = 1000) -> ResNet:
+    if arch in _BASIC_CONFIGS:
+        return ResNet(_BASIC_CONFIGS[arch], num_classes=num_classes, block=BasicBlock)
     return ResNet(_CONFIGS[arch], num_classes=num_classes)
 
 
@@ -120,10 +155,11 @@ def _array(t) -> np.ndarray:
 
 
 class FoldedResNet:
-    """The inference plan of a Bottleneck ResNet, built once from a
-    ``state_dict``: BatchNorm folded (``fold_bn``) and every weight cast to
-    ``dtype`` on ``device``. Calling it maps NHWC ``dtype`` images to f32
-    logits; ``plain=True`` runs the chains through their plain version (the
+    """The inference plan of a ResNet, built once from a ``state_dict``:
+    BatchNorm folded (``fold_bn``) and every weight cast to ``dtype`` on
+    ``device``. The block type follows the keys: a net without ``conv3`` is a
+    BasicBlock net. Calling it maps NHWC ``dtype`` images to f32 logits;
+    ``plain=True`` runs the chains through their plain version (the
     comparison the card makes)."""
 
     def __init__(self, state_dict, stage_sizes: Sequence[int],
@@ -148,25 +184,39 @@ class FoldedResNet:
         def bias(b: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(b).to(self.device, torch.float32)
 
+        basic = "layer1.0.conv3.weight" not in state_dict
+
+        def torch_block(p: str, stride: int):
+            """(convs, downsample) of block ``p``, run as torch ops."""
+            if basic:
+                convs = (torch_conv(f"{p}.conv1", f"{p}.bn1", stride, 1),
+                         torch_conv(f"{p}.conv2", f"{p}.bn2", 1, 1))
+            else:
+                convs = (torch_conv(f"{p}.conv1", f"{p}.bn1", 1, 0),
+                         torch_conv(f"{p}.conv2", f"{p}.bn2", stride, 1),
+                         torch_conv(f"{p}.conv3", f"{p}.bn3", 1, 0))
+            ds = (torch_conv(f"{p}.downsample.0", f"{p}.downsample.1", stride, 0)
+                  if f"{p}.downsample.0.weight" in state_dict else None)
+            return convs, ds
+
         self.stem = torch_conv("conv1", "bn1", 2, 3)
+        # Per stage: the blocks run as torch ops (all of a BasicBlock net's,
+        # the first of a Bottleneck net's), then the B2 chain of the rest.
         self.stages = []
         for s, num_blocks in enumerate(stage_sizes, start=1):
             stride = 1 if s == 1 else 2
-            p = f"layer{s}.0"
-            first = (torch_conv(f"{p}.conv1", f"{p}.bn1", 1, 0),
-                     torch_conv(f"{p}.conv2", f"{p}.bn2", stride, 1),
-                     torch_conv(f"{p}.conv3", f"{p}.bn3", 1, 0))
-            ds = (torch_conv(f"{p}.downsample.0", f"{p}.downsample.1", stride, 0)
-                  if f"{p}.downsample.0.weight" in state_dict else None)
+            n_torch = num_blocks if basic else 1
+            blocks = [torch_block(f"layer{s}.{b}", stride if b == 0 else 1)
+                      for b in range(n_torch)]
             chain = []
-            for b in range(1, num_blocks):
+            for b in range(n_torch, num_blocks):
                 q = f"layer{s}.{b}"
                 w1, b1 = folded(f"{q}.conv1", f"{q}.bn1")
                 w3, b3 = folded(f"{q}.conv2", f"{q}.bn2")
                 w2, b2 = folded(f"{q}.conv3", f"{q}.bn3")
                 chain += [matrix(w1[0, 0]), bias(b1), matrix(w3), bias(b3),
                           matrix(w2[0, 0]), bias(b2)]
-            self.stages.append((first, ds, chain))
+            self.stages.append((blocks, chain))
         self.fc_w = torch.from_numpy(_array(state_dict["fc.weight"]).T.copy()).to(self.device)
         self.fc_b = torch.from_numpy(_array(state_dict["fc.bias"])).to(self.device)
 
@@ -180,9 +230,12 @@ class FoldedResNet:
         chain_fn = bottleneck_chain_plain if plain else bottleneck_chain
         y = x.permute(0, 3, 1, 2)  # NHWC memory, NCHW view: channels_last
         y = max_pool_same(self._conv(y, self.stem, True), 3, 2)
-        for (c1, c2, c3), ds, chain in self.stages:
-            out = self._conv(self._conv(self._conv(y, c1, True), c2, True), c3, False)
-            y = torch.relu(out + (y if ds is None else self._conv(y, ds, False)))
+        for blocks, chain in self.stages:
+            for convs, ds in blocks:
+                out = y
+                for i, op in enumerate(convs):
+                    out = self._conv(out, op, relu=i + 1 < len(convs))
+                y = torch.relu(out + (y if ds is None else self._conv(y, ds, False)))
             if chain:
                 if not y.is_contiguous(memory_format=torch.channels_last):
                     raise RuntimeError("activations left channels_last before a chain")

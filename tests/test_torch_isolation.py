@@ -3,7 +3,9 @@
 A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``network_interpretation_imagenet_tpu`` imports every module of the port
 and runs the CPU slice end to end (segment, predict, masked evals,
-heatmap, localization score) and one small BO explanation, in the spirit of
+heatmap, localization score), one small BO explanation, the knockout,
+threshold-search and multi-image paths, both GP surrogates and a
+checkpoint round trip, in the spirit of
 tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
@@ -42,8 +44,13 @@ from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_wi
 from network_interpretation_imagenet_tpu_torch.ops.preprocess import to_display_uint8
 from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
 from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
-    localization_score, random_window_saliency)
+    knockout_saliency, localization_score, minimal_mask_search, random_window_saliency)
 from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+from network_interpretation_imagenet_tpu_torch.gp import kron, variational
+from network_interpretation_imagenet_tpu_torch.utils.checkpoint import (
+    restore_checkpoint, save_checkpoint)
+import tempfile
+tmp = tempfile.mkdtemp()
 
 rng = np.random.RandomState(0)
 image = np.zeros((32, 32, 3), np.float32)
@@ -60,6 +67,22 @@ assert out.heatmap.shape == (32, 32) and np.isfinite(out.heatmap).all()
 assert 0.0 <= iou <= 1.0
 bo_out, trace = bo_window_saliency(engine, image, segments, BOConfig(n_iters=2, n_pre_samples=2))
 assert len(trace.xp) == 4 and np.isfinite(bo_out.heatmap).all()
+ko = knockout_saliency(engine, image, segments, num_samples=6, num_knockout=2, seed=0)
+thr, keep, levels = minimal_mask_search(engine, image, ko.heatmap, int(ko.eval.preds[0]))
+assert ko.masks.shape == (6, 32, 32) and len(keep) == len(levels)
+multi = engine.eval_window_masks_multi(np.stack([image, image]), np.stack([segments] * 2),
+                                       np.stack([out.firsts[:3]] * 2), [out.width] * 2, [0, 1])
+assert [len(r.survived) for r in multi] == [3, 3]
+params, losses = kron.fit_adam(out.heatmap, iters=3, device="cpu")
+mean, var = kron.posterior(params, out.heatmap, device="cpu")
+xs = np.stack(np.meshgrid(np.arange(32), np.arange(32), indexing="ij"), -1).reshape(-1, 2)
+vgp, vlosses = variational.fit_adam(variational.init_model(32, 4, 4.0, device="cpu"),
+                                    xs.astype(np.float32), (out.heatmap.ravel() > 0) * 1.0,
+                                    iters=3)
+probs = variational.predict_proba(vgp, xs.astype(np.float32))
+save_checkpoint({"mean": mean}, tmp, is_best=True)
+assert np.array_equal(restore_checkpoint(tmp, "model_best")["mean"], mean.numpy())
+assert np.isfinite(var.numpy()).all() and np.isfinite(probs.numpy()).all()
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -84,4 +107,7 @@ def test_no_jax_import_in_port_sources():
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert not offenders, offenders
     modules = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-    assert "network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain" in modules
+    for name in ("ops.bottleneck_chain", "gp.kron", "gp.variational", "utils.checkpoint",
+                 "cli.generate_gp_training_data_imagenet", "cli.gp_superpixel_data_imagenet",
+                 "cli.gp_regression", "cli.gp_classification"):
+        assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

@@ -18,8 +18,9 @@ def randomize_bn(params, stats, rng):
 
 
 def flax_resnet_variables(state_dict, stage_sizes):
-    """A torchvision-keyed Bottleneck ResNet ``state_dict`` (numpy or torch
-    values) as the JAX package's flax variables: conv OIHW -> HWIO, dense
+    """A torchvision-keyed ResNet ``state_dict`` (numpy or torch values;
+    BasicBlock or Bottleneck, told apart by ``conv3``) as the JAX package's
+    flax variables: conv OIHW -> HWIO, dense
     [out, in] -> [in, out], BatchNorm weight / bias / running statistics ->
     scale / bias and batch_stats mean / var. Cheaper in a test than flax's
     ``init``, which compiles every initializer."""
@@ -46,7 +47,7 @@ def flax_resnet_variables(state_dict, stage_sizes):
     for s, n in enumerate(stage_sizes, start=1):
         for b in range(n):
             tp, fp = f"layer{s}.{b}", f"layer{s}_{b}"
-            for c in (1, 2, 3):
+            for c in (1, 2, 3) if f"{tp}.conv3.weight" in sd else (1, 2):
                 conv(f"{tp}.conv{c}", fp, f"conv{c}")
                 bn(f"{tp}.bn{c}", fp, f"bn{c}")
             if f"{tp}.downsample.0.weight" in sd:
