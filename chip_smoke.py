@@ -58,7 +58,38 @@ hand-written kernel against its plain PyTorch version on the card:
      predicted) on the card against the CPU, run with TF32 allowed so that
      the GP's own full-f32 guard is what holds: the same lengthscale, errors
      within stated tolerances, times and the card's busy time;
- 14. [gp cli]: gp_superpixel_data_imagenet's compute end to end (B1 1, B2 8).
+ 14. [gp cli]: gp_superpixel_data_imagenet's compute end to end (B1 1, B2 8);
+ 15. [attr]: the attribution family at ResNet-101 224 on the seed-0
+     synthetic image, with BatchNorm statistics measured on 8 other
+     synthetic images (the init's leave every softmax saturated).
+     Occlusion (169 positions in chunks of 64), RISE (1000 masks in chunks
+     of 250), Score-CAM (64 channels) and deletion_insertion_auc (2 x 33
+     images) through B2, in bf16 and in f32 (B2's f32 instance), each with
+     its launches held (B1 0; B2 16, 16, 4 and 4) and held against the same
+     call through the folded net's plain path on the card: every masked
+     forward's logits against the plain path's on the same input (bf16
+     within B2_TOL, f32 within B2_F32_TOL of max |plain logit|), each map
+     within ATTR_B2_TOL of max |plain map| (a bf16 map that bf16 cannot
+     resolve, further from its f32 version than its own maximum, is
+     printed only), each AUC within ATTR_AUC_TOL of its curve's range;
+     with a profiler trace of a bf16 RISE call that must
+     hold B2 kernels; IG,
+     SmoothGrad, Grad-CAM, XRAI and the learned mask through the plain
+     module (B2 0): f32 on the card against f32 on the CPU (ATTR_F32_TOL of
+     max |CPU map| and Spearman ATTR_F32_RHO; the learned mask's first-step
+     loss and p(target) within ATTR_LM_TOL)
+     and bf16 against f32 on the card (Spearman |rank| correlation printed);
+     every map finite and not constant; each method's warm ms;
+ 16. [attr cli]: compare_saliency_methods --synthetic (its default
+     ResNet-18, all 16 methods, 2 images; B2 0), occlusion_saliency --arch
+     resnet101 with attr's weights (B1 0, B2 12), attribution_sanity (ResNet-18; B1 0, B2 0) and
+     the flagship CLI with --fidelity (B1 11, B2 52);
+ 17. [slic]: SLIC labels on the card against the CPU (k-means, then the
+     connectivity pass and the relabelling), and its time on the card;
+ 18. [B2 graphs], last: B2 and its bf16 cuDNN yardstick as CUDA graph
+     replays at the BO's batches and at the attribution family's 41, 64,
+     66 and 250 (each of these also checked block by block against the
+     plain version at B2_TOL).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -96,6 +127,22 @@ GP_TOL = 1e-4                # Kronecker GP: relative to the tensor's scale
 VGP_LOSS_TOL = 5e-4          # variational GP's -ELBO history: relative
 VGP_PROB_TOL = 1e-3          # its p(y=1): absolute
 R18_TOL = 2e-2               # ResNet-18 bf16 plan vs plain f32 net: x max|logit| (2^-8 = 3.9e-3)
+# Occlusion's last chunk (169 = 2 x 64 + 41), occlusion / Score-CAM chunks,
+# both fidelity curves, RISE chunks.
+ATTR_BATCHES = (41, 64, 66, 250)
+ATTR_B2_TOL = 2e-2           # a B2-path map vs the plain path's: x max |plain map|
+ATTR_AUC_TOL = 2e-2          # a fidelity AUC, B2 path vs plain path: x the curve's range
+# Gradient maps, f32 card vs f32 CPU: max err x max |CPU map|, and the
+# Spearman |rank| correlation. The two sum in other orders, and on these
+# random weights an f32 gradient map is itself far from float64's: on the
+# CPU, IG (4 steps) 4.6e-2 max / 2.9e-2 L2 off, Spearman 0.9989; SmoothGrad
+# 2.5e-2 / 1.3e-2, 0.9996. The card's first run read IG 4.4e-2 off the CPU.
+ATTR_F32_TOL = 1e-1
+ATTR_F32_RHO = 0.99
+# The learned mask's first-step loss and p(target), card vs CPU: relative.
+# (After 3 steps the CPU's own f32 mask is Spearman 0.82 from float64's, its
+# loss 2.8 % off: Adam's near-sign steps amplify the gradients' rounding.)
+ATTR_LM_TOL = 1e-3
 PKG = "network_interpretation_imagenet_tpu_torch"
 
 
@@ -1033,13 +1080,27 @@ def gp_checks(heat, heats, smi):
 
 
 def b2_graph_phase(cases, smi):
-    """B2 and its bf16 cuDNN yardstick at the BO's batches as CUDA graph
-    replays: eager cuDNN at B <= 24 is bound by Python's launches, a replay
-    shows each chain's device time. Run last, so that the captures' memory
-    pools cannot touch the paths' timings."""
+    """B2 and its bf16 cuDNN yardstick at the BO's batches and the
+    attribution family's (ATTR_BATCHES) as CUDA graph replays: eager cuDNN at
+    small batches is bound by Python's launches, a replay shows each chain's
+    device time. Run last, so that the captures' memory pools cannot touch
+    the paths' timings."""
+    import torch
+
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
 
     per_batch = {}
+    rng = np.random.RandomState(SEED + 1)
+    cases = list(cases)
+    for batch in ATTR_BATCHES:
+        for h, c, p, n in STAGES_101:
+            ws = b2_weights(rng, c, p, n, torch.bfloat16, "cuda")
+            x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
+                                 ).to("cuda", torch.bfloat16)
+            block_err, _, _ = check_chain(x, ws, B2_TOL)
+            log(f"[B2 graphs] B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
+                f"{block_err:.4g} (tol {B2_TOL} x max|plain|)")
+            cases.append((batch, x, ws))
     for batch, x, ws in cases:
         b2 = time_ms(graphed(lambda: bottleneck_chain(x, ws)).replay, 20)
         cudnn = time_ms(graphed(cudnn_chain(x, ws)).replay, 20)
@@ -1068,6 +1129,425 @@ def gp_cli_phase(by_path):
         raise AssertionError(f"gp cli payload {payload}")
     log(f"[gp cli] compute {seconds:.2f} s with its engine build; launches "
         f"{json.dumps(by_path['gp_cli'])}; payload {json.dumps(payload)}")
+
+
+def host(t):
+    """A tensor (any device) or an array as a float64 numpy array."""
+    return t.detach().float().cpu().numpy().astype(np.float64) if hasattr(t, "detach") \
+        else np.asarray(t, np.float64)
+
+
+def check_map(name, heat):
+    """Raises unless ``heat`` is finite and not constant."""
+    h = host(heat)
+    if not np.isfinite(h).all() or np.ptp(h) == 0:
+        raise AssertionError(f"[attr] {name}: non-finite or constant map")
+    return h
+
+
+def rel_err(got, want):
+    g, w = host(got), host(want)
+    return float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+
+
+def b2_device_ms(fn):
+    """One call of ``fn`` under torch.profiler: (device ms of b2_ kernels,
+    device ms of all kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    b2 = total = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.device_time
+            if "b2_conv" in e.name:
+                b2 += e.device_time
+    return b2 / 1e3, total / 1e3
+
+
+def calibrated_state_dict(bundle, seeds):
+    """``bundle.init(SEED)`` with every BatchNorm's running statistics set to
+    its batch statistics on the synthetic images of ``seeds`` (the plain
+    module in training mode, one forward on the card). The init's statistics
+    (0 and 1) leave ResNet-101's logits near 5e4, where every softmax is 0 or
+    1 and every probability-based map is constant."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import normalize
+
+    net = bundle.module
+    net.load_state_dict(bundle.init(SEED))
+    net.cuda()
+    batch = torch.stack([normalize(torch.from_numpy(synthetic_image(s)[0].astype(np.float32)
+                                                    / 255.0), IMAGENET_MEAN, IMAGENET_STD)
+                         for s in seeds]).cuda()
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None   # a cumulative average: one batch's statistics
+    net.train()
+    with torch.no_grad():
+        net(batch)
+    net.eval()
+    for m in bns:
+        m.momentum = 0.1
+    sd = {k: t.detach().clone() for k, t in net.state_dict().items()}
+    net.cpu()
+    return sd
+
+
+def attr_phase(normalized, display, smi, by_path):
+    """The attribution family at full width (see the module docstring, 15)."""
+    import types
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models import create_model, resnet_imagenet
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
+        bottleneck_chain,
+        bottleneck_chain_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency import gradient as g
+    from network_interpretation_imagenet_tpu_torch.saliency import learned_mask, xrai
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.eval_metrics import (
+        deletion_insertion_auc,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.sanity import spearman_abs
+
+    bundle = create_model("resnet101", "imagenet", dtype=torch.bfloat16)
+    b32 = create_model("resnet101", "imagenet", dtype=torch.float32)
+    sd = calibrated_state_dict(bundle, range(1, 9))
+    engines = {d: SaliencyEngine(b, sd, mask_batch=MASK_BATCH, device="cuda")
+               for d, b in (("bf16", bundle), ("f32", b32))}
+    engine = engines["bf16"]
+    v = engine.variables
+    target = engine.predict_one(normalized)[0]
+    image = torch.from_numpy(normalized).cuda()
+
+    def plain_fn(e):
+        """Engine ``e``'s masked-forward logits_fn through its folded net with
+        the chains' plain version."""
+        @torch.inference_mode()
+        def fn(variables, x):
+            return e.model(x.to(e.compute_dtype).contiguous(), plain=True)
+        return fn
+
+    def as_engine(e, logits_fn):
+        """``e`` with ``logits_fn`` as its predict_logits_device (fidelity)."""
+        return types.SimpleNamespace(device=e.device, predict_logits_device=lambda imgs: logits_fn(
+            e.variables, torch.as_tensor(imgs).to(e.device, torch.float32)))
+
+    # Per forward, (path, dtype) -> worst max |a - b| / max |b| of the logits:
+    # "b2" B2 vs the plain path; for bf16 also "b2_f32" B2 and "plain_f32"
+    # the plain path, each vs the f32 engine's plain path on the same input.
+    fwd = {}
+
+    def held(e, key):
+        """``e.folded_logits`` with each forward's logits held against the
+        plain path (and a bf16 forward's against the f32 plain path) on the
+        same input, the worst of the call's forwards kept in ``fwd``."""
+        plain, plain32 = plain_fn(e), plain_fn(engines["f32"])
+
+        def note(name, a, b):
+            err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            fwd[key + (name,)] = max(fwd.get(key + (name,), 0.0), err)
+
+        def fn(variables, x):
+            x = x.to(e.compute_dtype)   # one rounded input for all three
+            got = e.folded_logits(variables, x)
+            want = plain(variables, x)
+            note("b2", got, want)
+            if e.compute_dtype == torch.bfloat16:
+                exact = plain32(engines["f32"].variables, x)
+                note("b2_f32", got, exact)
+                note("plain_f32", want, exact)
+            return got
+        return fn
+
+    # The first chain call of each dtype and shape on these paths: its input
+    # and weights, checked block by block after the counted runs.
+    chain_inputs = {}
+
+    def recording_chain(x, ws):
+        chain_inputs.setdefault((x.dtype, tuple(x.shape)), (x, ws))
+        return bottleneck_chain(x, ws)
+
+    def masked(e):
+        """The B2 paths of engine ``e``: (name, B2 launches, call(logits_fn))."""
+        b, w, dt = e.bundle, e.variables, e.compute_dtype
+        return [
+            ("occlusion", 16, lambda f: g.occlusion_map(f, w, image, target, batch=64,
+                                                        compute_dtype=dt)),
+            ("rise", 16, lambda f: g.rise_map(f, w, image, target, num_masks=1000, batch=250,
+                                              seed=SEED, compute_dtype=dt)),
+            ("scorecam", 4, lambda f: g.scorecam(b, w, image, target, channels=64, batch=64,
+                                                 compute_dtype=dt, logits_fn=f)),
+        ]
+
+    heat = check_map("gradient", g.input_gradient(b32.logits, v, image, target))
+    maps, errs, aucs = {}, {}, {}
+    resnet_imagenet.bottleneck_chain = recording_chain
+    try:
+        for d, e in engines.items():
+            suffix = "" if d == "bf16" else "_f32"
+            for name, b2, run in masked(e):
+                got = counted(by_path, f"attr_{name}{suffix}", lambda: run(held(e, (name, d))),
+                              0, b2)
+                want = run(plain_fn(e))
+                maps[name, d] = (check_map(f"{name} {d}", got),
+                                 check_map(f"{name} {d} plain", want))
+                errs[name, d] = rel_err(got, want)
+            fid = counted(by_path, f"attr_fidelity{suffix}", lambda: deletion_insertion_auc(
+                as_engine(e, held(e, ("fidelity", d))), normalized, heat, target), 0, 4)
+            fid_plain = deletion_insertion_auc(as_engine(e, plain_fn(e)), normalized, heat,
+                                               target)
+            aucs[d] = (fid, max(abs(fid[k + "_auc"] - fid_plain[k + "_auc"])
+                                / np.ptp(fid_plain[k + "_curve"])
+                                for k in ("deletion", "insertion")))
+    finally:
+        resnet_imagenet.bottleneck_chain = bottleneck_chain
+    # The kernel check: every chain shape these paths ran, block by block on
+    # the activations the path gave it (bf16 within B2_TOL, f32 within
+    # B2_F32_TOL of max |plain block output|), so nothing compounds. Whole
+    # forwards: f32 logits within B2_F32_TOL of the plain path's; in bf16 a
+    # forward's rounding compounds over 101 layers of a random net in both
+    # paths, so its B2 logits are held no further from the f32 plain path
+    # than twice the plain bf16 path is, plus B2_TOL (a wrong kernel is off
+    # by the logits' own scale). Maps within ATTR_B2_TOL, except a bf16 map
+    # further from its own f32 version than its maximum (occlusion here, a
+    # difference of probabilities near 1e-3): printed only. AUCs within
+    # ATTR_AUC_TOL of their curve's range.
+    fails, chain_worst = [], {}
+    for (dt, shape), (x, ws) in chain_inputs.items():
+        tol = B2_TOL if dt == torch.bfloat16 else B2_F32_TOL
+        worst = 0.0
+        for k in range(len(ws) // 6):
+            a = bottleneck_chain(x, ws[6 * k:6 * k + 6]).float()
+            b = bottleneck_chain_plain(x, ws[6 * k:6 * k + 6]).float()
+            worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+            x = a.to(dt)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        chain_worst[name, shape[0]] = max(chain_worst.get((name, shape[0]), 0.0), worst)
+        if not worst <= tol:
+            fails.append(f"chain {name} {shape}: worst block {worst:.4g} > {tol}")
+    for (path, d, kind), err in fwd.items():
+        if kind == "b2" and d == "f32" and not err <= B2_F32_TOL:
+            fails.append(f"{path} f32: a forward's B2 logits vs plain {err:.4g}")
+        if kind == "b2_f32" and not err <= 2 * fwd[path, d, "plain_f32"] + B2_TOL:
+            fails.append(f"{path} bf16: a forward's B2 logits {err:.4g} from f32, the plain "
+                         f"path's {fwd[path, d, 'plain_f32']:.4g}")
+    lines = []
+    for name, _, _ in masked(engine):
+        noise = rel_err(maps[name, "bf16"][1], maps[name, "f32"][1])
+        for d in engines:
+            if (d == "f32" or noise <= 1.0) and not errs[name, d] <= ATTR_B2_TOL:
+                fails.append(f"{name} {d}: B2 map vs plain {errs[name, d]:.4g}")
+        lines.append(f"{name} {errs[name, 'bf16']:.3g} bf16 (plain bf16 vs f32 {noise:.3g}"
+                     + (", not held" if noise > 1.0 else "") + f"), {errs[name, 'f32']:.3g} f32")
+    for d, (fid, auc_err) in aucs.items():
+        if not auc_err <= ATTR_AUC_TOL:
+            fails.append(f"fidelity {d}: B2 AUC vs plain {auc_err:.4g} of the curve's range")
+    fid = aucs["bf16"][0]
+    log(f"[attr] {smi}: B2 on these paths' own activations, worst block err / max|plain| by "
+        "dtype and batch: " + ", ".join(f"{d} B={b} {w:.3g}" for (d, b), w in chain_worst.items())
+        + "; per forward, worst max err / max|reference logit| (B2 vs plain; bf16 also B2 and "
+        "plain vs the f32 plain path): " + "; ".join(
+            f"{p} {d} {k} {err:.3g}" for (p, d, k), err in fwd.items())
+        + "; maps, max err / max|plain map|: " + "; ".join(lines)
+        + f"; deletion / insertion AUC bf16 {fid['deletion_auc']:.4f} / "
+        f"{fid['insertion_auc']:.4f} (curve ranges {np.ptp(fid['deletion_curve']):.4g} / "
+        f"{np.ptp(fid['insertion_curve']):.4g}), B2 vs plain {aucs['bf16'][1]:.3g} bf16, "
+        f"{aucs['f32'][1]:.3g} f32 of the curve's range")
+    if fails:
+        raise AssertionError("[attr] " + "; ".join(fails))
+    ms = {}
+    for name, _, run in masked(engine):
+        ms[name] = p50_ms(lambda: run(engine.folded_logits), 3)
+    ms["fidelity (2 x 33 images)"] = p50_ms(
+        lambda: deletion_insertion_auc(engine, normalized, heat, target), 3)
+    rise_b2, rise_all = b2_device_ms(lambda: masked(engine)[1][2](engine.folded_logits))
+    if rise_all > 0 and rise_b2 == 0:
+        raise AssertionError("[attr] profile of rise_map: device time but no b2_ kernel")
+    state_mb = sum(t.numel() * t.element_size() for t in v.values()) / 2**20
+    log(f"[attr] {smi}: ResNet-101 224, BatchNorm statistics from 8 synthetic images, target "
+        f"{target}; the engine's state dict on the card (the differentiable path's weights, "
+        f"beside its folded plan) {state_mb:.1f} MiB; launches " + json.dumps(
+            {p: by_path[p] for p in by_path if p.startswith("attr_")})
+        + f"; rise_map under the profiler: b2_ kernels {rise_b2:.3f} of {rise_all:.3f} device ms")
+
+    # The differentiable path: the plain module, no B2.
+    v_cpu = {k: t.cpu() for k, t in v.items()}
+
+    def methods(bundle_, variables, img, small):
+        n = dict(steps=4, samples=4, iters=1, jitter=2) if small else \
+            dict(steps=16, samples=16, iters=150, jitter=4)
+        return {
+            "integrated": lambda: g.integrated_gradients(bundle_.logits, variables, img, target,
+                                                         steps=n["steps"]),
+            "smoothgrad": lambda: g.smoothgrad(bundle_.logits, variables, img, target,
+                                               samples=n["samples"], seed=SEED),
+            "gradcam": lambda: g.gradcam(bundle_, variables, img, target),
+            "xrai": lambda: xrai.xrai_saliency(bundle_.logits, variables, img, target, display,
+                                               steps=n["steps"]),
+            "meaningful": lambda: learned_mask.learned_mask_saliency(
+                bundle_.logits, variables, img, target, iters=n["iters"], jitter=n["jitter"],
+                seed=SEED, compute_dtype=bundle_.dtype),
+        }
+
+    def maps(fns):
+        """{name: (compared map, heatmap, the learned mask's result or None)}."""
+        out = {}
+        for name, fn in fns.items():
+            r = fn()
+            out[name] = (r.attribution, r.heatmap, None) if name == "xrai" else \
+                (r.heatmap, r.heatmap, r) if name == "meaningful" else (r, r, None)
+        return out
+
+    f32_card = counted(by_path, "attr_gradients", lambda: maps(methods(b32, v, image, True)), 0, 0)
+    f32_cpu = maps(methods(b32, v_cpu, torch.from_numpy(normalized), True))
+    card_lines, strays = [], []
+    for name, (m, heat, res) in f32_card.items():
+        check_map(name, heat)
+        err, cpu = rel_err(m, f32_cpu[name][0]), host(f32_cpu[name][0])
+        l2 = float(np.linalg.norm(host(m) - cpu) / np.linalg.norm(cpu))
+        r = spearman_abs(host(m), cpu)
+        line = f"{name} {err:.3g} (L2 {l2:.3g}, Spearman {r:.5f})"
+        if res is None:
+            if err > ATTR_F32_TOL or r < ATTR_F32_RHO:
+                strays.append(name)
+        else:
+            # The learned mask: Adam's first step is close to lr * sign(g), so
+            # a cell whose gradient the card and the CPU round to opposite signs
+            # moves by +-lr; its loss and probability are what stay comparable.
+            cres = f32_cpu[name][2]
+            loss_err = abs(res.final_loss - cres.final_loss) / abs(cres.final_loss)
+            prob_err = abs(res.prob_original - cres.prob_original) / cres.prob_original
+            if loss_err > ATTR_LM_TOL or prob_err > ATTR_LM_TOL:
+                strays.append(name)
+            line += f", loss {loss_err:.3g} and p(target) {prob_err:.3g} relative"
+        card_lines.append(line)
+    log("[attr] f32 card vs f32 CPU (IG/XRAI 4 steps, SmoothGrad 4 samples, learned mask 1 "
+        "step; max err / max|CPU map|): " + ", ".join(card_lines))
+    if strays:
+        raise AssertionError(f"[attr] f32 card vs CPU beyond {ATTR_F32_TOL} or Spearman "
+                             f"{ATTR_F32_RHO}: {strays}")
+    full = {"bf16": maps(methods(bundle, v, image, False)),
+            "f32": maps(methods(b32, v, image, False))}
+    rho = {name: spearman_abs(host(full["bf16"][name][1]), host(full["f32"][name][1]))
+           for name in full["f32"]}
+    for name, (_, heat, _) in full["bf16"].items():
+        check_map(name + " bf16", heat)
+    for name, fn in methods(bundle, v, image, False).items():
+        ms[name] = p50_ms(fn, 2)
+    ms["gradient"] = p50_ms(lambda: g.input_gradient(bundle.logits, v, image, target), 3)
+    log(f"[attr] {smi}: differentiable path (plain module, launches "
+        + json.dumps(by_path["attr_gradients"]) + "); bf16 vs f32 on the card at the "
+        "defaults, Spearman |rank| correlation of the heatmaps: "
+        + ", ".join(f"{k} {r:.4f}" for k, r in rho.items()))
+    log(f"[attr] {smi}: warm ms per call (p50, bf16, defaults: occlusion 169 positions in "
+        "chunks of 64, RISE 1000 masks in chunks of 250, Score-CAM 64 channels, IG and XRAI "
+        "16 steps, SmoothGrad 16 samples, learned mask 150 steps x 4 shifts): "
+        + ", ".join(f"{k} {t:.2f}" for k, t in ms.items()))
+    return sd
+
+
+def attr_cli_phase(by_path, calibrated):
+    """The attribution CLIs on the card (see the module docstring, 16); the
+    occlusion CLI reads ``calibrated`` (attr_phase's ResNet-101 state dict)
+    through --ckpt, so that its map is not constant."""
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import attribution_sanity
+    from network_interpretation_imagenet_tpu_torch.cli import (
+        bayesian_active_learning_imagenet as bal,
+    )
+    from network_interpretation_imagenet_tpu_torch.cli import compare_saliency_methods as compare
+    from network_interpretation_imagenet_tpu_torch.cli import occlusion_saliency
+
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        args = compare.parse_args(["--synthetic", "--num-images", "2", "--out", tmp])
+        t0 = time.perf_counter()
+        # B1: per image one window chunk and the BO host loop's 11 (ResNet-18: no B2).
+        payload = counted(by_path, "cli_compare", lambda: quiet(lambda: compare.compute(args)),
+                          24, 0)
+        seconds = time.perf_counter() - t0
+        ms = payload["methods"]
+        if (payload["images_used"] != 2 or len(ms) != 16 or not all(
+                np.isfinite([m["mean_deletion_auc"], m["mean_insertion_auc"]]).all()
+                for m in ms.values())):
+            raise AssertionError(f"compare payload {payload}")
+        parts.append(f"compare_saliency_methods (ResNet-18, 16 methods, 2 images) {seconds:.2f} s, "
+                     f"launches {json.dumps(by_path['cli_compare'])}, ranking "
+                     + ",".join(payload["ranking"]) + "; s/img "
+                     + ", ".join(f"{k} {m['seconds_per_image']:.3f}" for k, m in ms.items()))
+
+        ckpt = f"{tmp}/resnet101_calibrated.pth"
+        torch.save({"state_dict": {k: t.cpu() for k, t in calibrated.items()}}, ckpt)
+        args = occlusion_saliency.parse_args(["--synthetic", "--arch", "resnet101", "--ckpt", ckpt,
+                                              "--out", tmp])
+        t0 = time.perf_counter()
+        # B2: the prediction, the unoccluded forward and one chunk of 169 (--mask-batch 1024).
+        payload, heat, _ = counted(by_path, "cli_occlusion",
+                                   lambda: quiet(lambda: occlusion_saliency.compute(args)), 0, 12)
+        check_map("occlusion_saliency", heat)
+        parts.append(f"occlusion_saliency (ResNet-101) {time.perf_counter() - t0:.2f} s, "
+                     f"heat range {payload['heat_range']}")
+
+        args = attribution_sanity.parse_args(["--synthetic", "--out", tmp])
+        t0 = time.perf_counter()
+        payload = counted(by_path, "cli_sanity",
+                          lambda: quiet(lambda: attribution_sanity.compute(args)), 0, 0)
+        last = {m: rows[-1]["spearman"] for m, rows in payload["methods"].items()}
+        if len(payload["stages"]) != 11 or not all(np.isfinite(list(last.values()))):
+            raise AssertionError(f"sanity payload {payload}")
+        parts.append(f"attribution_sanity (ResNet-18, 11 stages) {time.perf_counter() - t0:.2f} "
+                     "s, Spearman after full randomization " + json.dumps(last))
+
+        argv = ["--synthetic", "--arch", "resnet101", "--fused", "--fidelity", "--out", tmp]
+        t0 = time.perf_counter()
+        payload, _ = counted(by_path, "cli_fidelity",
+                             lambda: quiet(lambda: bal.explain(bal.parse_args(argv))), 11, 52)
+        if not (0.0 <= payload["deletion_auc"] <= 1.0 and 0.0 <= payload["insertion_auc"] <= 1.0):
+            raise AssertionError(f"flagship --fidelity payload {payload}")
+        parts.append(f"flagship --fidelity {time.perf_counter() - t0:.2f} s, deletion / insertion "
+                     f"AUC {payload['deletion_auc']} / {payload['insertion_auc']}")
+    torch.cuda.synchronize()
+    log("[attr cli] " + "; ".join(parts) + "; launches "
+        + json.dumps({p: by_path[p] for p in ("cli_occlusion", "cli_sanity", "cli_fidelity")}))
+
+
+def slic_phase(display, smi):
+    """SLIC on the card against the CPU (see the module docstring, 17)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
+    from network_interpretation_imagenet_tpu_torch.segment import slic
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    card = slic.slic(display, device="cuda").cpu().numpy()
+    cpu = slic.slic(display, device="cpu").numpy()
+    cfg = SegmentConfig(method="slic")
+    seg_card, seg_cpu = segment_image(display, cfg, "cuda"), segment_image(display, cfg, "cpu")
+    differ, seg_differ = int((card != cpu).sum()), int((seg_card != seg_cpu).sum())
+    if differ > 0.001 * card.size or seg_differ > 0.001 * card.size:
+        raise AssertionError(f"[slic] card vs CPU: {differ} k-means labels, {seg_differ} "
+                             "segment labels differ")
+    torch.cuda.synchronize()
+    kmeans = time_ms(lambda: slic.slic(display, device="cuda"), 5)
+    seg = p50_ms(lambda: segment_image(display, cfg, "cuda"), 5)
+    log(f"[slic] {smi}: 224x224, 48 segments, 10 iterations: k-means labels differing card vs CPU "
+        f"{differ} of {card.size}, segment labels {seg_differ} ({int(seg_card.max()) + 1} "
+        f"segments); k-means on the card {kmeans:.3f} ms (device), segment_image with the host "
+        f"pass {seg:.3f} ms (p50)")
 
 
 def main() -> int:
@@ -1354,6 +1834,9 @@ def main() -> int:
     heats = multi_phase(engine, pool, pool_segs, pool_targets, rates[MASK_BATCH], smi, paths)
     gp_phase(out.heatmap, heats, smi)
     gp_cli_phase(paths)
+    calibrated = attr_phase(normalized, display, smi, paths)
+    attr_cli_phase(paths, calibrated)
+    slic_phase(display, smi)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}

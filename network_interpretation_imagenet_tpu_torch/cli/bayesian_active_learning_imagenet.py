@@ -37,7 +37,8 @@ def parse_args(argv=None):
                    help="q-batched BO: evaluate the top-q EI proposals of an iteration in "
                         "one forward (1 = reference behavior)")
     p.add_argument("--fidelity", action="store_true",
-                   help="deletion/insertion AUC: not ported yet (ROADMAP A19)")
+                   help="also report deletion/insertion AUC (and the pointing game with gt "
+                        "boxes) for the produced heatmap")
     p.add_argument("--num-images", type=int, default=1,
                    help=">1: explain N consecutive images with the image-batched fused loop")
     return p.parse_args(argv)
@@ -47,8 +48,6 @@ def explain(args):
     """Run the explanation; returns ``(payload, outputs)``: the
     ``bo_result.json`` payload, and per image ``(index, display, saliency
     output)`` for the artifact writers."""
-    if args.fidelity:
-        raise NotImplementedError("--fidelity is not ported yet (ROADMAP A19)")
     if args.num_images > 1:
         return _explain_batched(args)
 
@@ -62,7 +61,7 @@ def explain(args):
               "explaining the predicted class instead")
     target = pred
 
-    seg = common.segment_display(disp, common.segment_config(args))
+    seg = common.segment_display(disp, common.segment_config(args), args.device)
     print(f"{args.segmenter} number of segments: {seg.max() + 1}")
     cfg = BOConfig(n_iters=args.n_iters, n_pre_samples=args.n_pre_samples)
     out, trace = bo_window_saliency(
@@ -84,7 +83,10 @@ def explain(args):
         payload["IOU"] = round(float(iou), 4)
         payload["pred_box_xywh"] = [int(v) for v in pred_box]
         payload["gt_box_xywh"] = [float(v) for v in gt_bbox]
+    if args.fidelity:
+        payload.update(common.fidelity_entries(engine, image, out.heatmap, target, gt_bbox))
     return payload, [(args.eval_img_index, disp, out)]
+
 
 
 def _explain_batched(args):
@@ -106,7 +108,7 @@ def _explain_batched(args):
         disps.append(disp)
         labels.append(label)
         gts.append(gt_bbox)
-    segs = segment_image_batch(disps, common.segment_config(args))
+    segs = segment_image_batch(disps, common.segment_config(args), args.device)
 
     preds = np.asarray(engine.predict(np.stack(images)).argmax(axis=1))
     for i, label in enumerate(labels):
@@ -133,6 +135,9 @@ def _explain_batched(args):
         if gts[i] is not None:
             iou, _ = localization_score(out.heatmap, gts[i], args.bbox_threshold)
             row["IOU"] = round(float(iou), 4)
+        if args.fidelity:
+            row.update(common.fidelity_entries(engine, images[i], out.heatmap, int(preds[i]),
+                                               gts[i]))
         rows.append(row)
         outputs.append((args.eval_img_index + i, disps[i], out))
     payload = {

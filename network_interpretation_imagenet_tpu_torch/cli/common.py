@@ -45,12 +45,14 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="where the engine runs (the card unless cpu is asked for)")
 
     g = p.add_argument_group("segmentation")
-    g.add_argument("--segmenter", default="felzenszwalb", choices=["felzenszwalb"])
+    g.add_argument("--segmenter", default="felzenszwalb", choices=["felzenszwalb", "slic"],
+                   help="felzenszwalb (host) or slic (k-means on --device)")
     # None = area-adaptive: the reference's scale=100 calibrated at 224^2.
     g.add_argument("--scale", type=float, default=None)
     g.add_argument("--sigma", type=float, default=0.5)
     g.add_argument("--min_size", type=int, default=None,
                    help="default: the reference's 50 for imagenet")
+    g.add_argument("--n_segments", type=int, default=48, help="slic: target superpixel count")
 
     g = p.add_argument_group("masks")
     g.add_argument("--num_mask_samples", type=int, default=100)
@@ -75,6 +77,57 @@ def add_bo_flags(p: argparse.ArgumentParser) -> None:
                    help="use the host-driven BO loop (default, as in the JAX package)")
 
 
+def add_method_flags(p: argparse.ArgumentParser, rise_masks: int = 500, sg_samples: int = 16,
+                     lm_iters: int = 150, lm_jitter: int = 4) -> None:
+    """Per-method attribution hyperparameters, shared by the CLIs that
+    dispatch through ``compare_saliency_methods.heatmap`` (occlusion_saliency,
+    compare_saliency_methods, attribution_sanity); each CLI may change the
+    defaults through the keyword arguments."""
+    g = p.add_argument_group("attribution method hyperparameters")
+    # None = resolution-adaptive (32 at 224^2 scaled to the image side, floor
+    # 4; stride = patch // 2): a fixed 32 on a 32x32 input has one position.
+    g.add_argument("--patch", type=int, default=None,
+                   help="occlusion: patch side (default: 32 at 224^2 scaled linearly, floor 4)")
+    g.add_argument("--stride", type=int, default=None,
+                   help="occlusion: stride (default: patch // 2)")
+    g.add_argument("--ig-steps", type=int, default=16, help="integrated/xrai: path steps")
+    g.add_argument("--sg-samples", type=int, default=sg_samples,
+                   help="smoothgrad: noisy copies averaged (one batched backward)")
+    g.add_argument("--sg-sigma", type=float, default=0.15,
+                   help="smoothgrad: Gaussian noise sigma relative to the image's value range")
+    g.add_argument("--sg-squared", action="store_true",
+                   help="smoothgrad: average squared gradients (SmoothGrad^2)")
+    g.add_argument("--rise-masks", type=int, default=rise_masks,
+                   help="rise: random soft masks (rounded up to a batch multiple)")
+    g.add_argument("--rise-grid", type=int, default=7, help="rise: low-res Bernoulli grid size")
+    g.add_argument("--rise-keep", type=float, default=0.5, help="rise: per-cell keep probability")
+    g.add_argument("--gradcam-layer", default=None,
+                   help="module path for gradcam/scorecam (default: deepest conv block; "
+                        "'list' prints the menu in occlusion_saliency)")
+    g.add_argument("--scorecam-channels", type=int, default=64,
+                   help="scorecam: top-K activation channels scored by masked forwards")
+    g.add_argument("--xrai-scales", default="auto",
+                   help="xrai: comma list of felzenszwalb scales for the oversegmentation "
+                        "ladder, or 'auto' (the paper's 224^2 ladder 50,100,150,250,500 "
+                        "area-scaled to the input size)")
+    g.add_argument("--lm-mask-size", type=int, default=28,
+                   help="meaningful: low-res mask grid side")
+    g.add_argument("--lm-iters", type=int, default=lm_iters)
+    g.add_argument("--lm-l1", type=float, default=0.05, help="meaningful: deletion-area weight")
+    g.add_argument("--lm-tv", type=float, default=0.1, help="meaningful: mean-TV smoothness weight")
+    g.add_argument("--lm-jitter", type=int, default=lm_jitter,
+                   help="meaningful: shifted copies per step")
+    g.add_argument("--lm-baseline", default="blur", choices=["blur", "zero"])
+
+
+def parse_xrai_scales(spec: str):
+    """``--xrai-scales`` -> a list of floats, or None for 'auto' (the callee
+    then takes ``xrai.adaptive_scales`` for its resolution)."""
+    if spec is None or spec.strip().lower() in ("auto", ""):
+        return None
+    return [float(s) for s in spec.split(",")]
+
+
 def add_gp_flags(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("gp surrogate")
     g.add_argument("--gp-mode", default="train", choices=["train", "eval", "train+eval"],
@@ -88,7 +141,7 @@ def add_gp_flags(p: argparse.ArgumentParser) -> None:
 def segment_config(args) -> SegmentConfig:
     min_size = 50 if args.min_size is None else args.min_size  # reference :150
     return SegmentConfig(method=args.segmenter, scale=args.scale, sigma=args.sigma,
-                         min_size=min_size)
+                         min_size=min_size, n_segments=args.n_segments)
 
 
 @functools.lru_cache(maxsize=4)
@@ -152,11 +205,27 @@ def build_engine(args):
     return SaliencyEngine(bundle, state_dict, mask_batch=args.mask_batch, device=args.device)
 
 
-def segment_display(disp: np.ndarray, cfg: SegmentConfig) -> np.ndarray:
+def segment_display(disp: np.ndarray, cfg: SegmentConfig, device=None) -> np.ndarray:
+    """Segment a display image; SLIC runs on ``device`` (a CLI's ``--device``)."""
     from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
 
-    return segment_image(disp, cfg)
+    return segment_image(disp, cfg, device)
 
+
+def fidelity_entries(engine, image, heatmap, target: int, gt_bbox) -> dict:
+    """``--fidelity``'s payload entries: deletion and insertion AUC (one
+    batched forward of both curves), and the pointing game with a gt box."""
+    from network_interpretation_imagenet_tpu_torch.saliency.eval_metrics import (
+        deletion_insertion_auc,
+        pointing_game,
+    )
+
+    fm = deletion_insertion_auc(engine, image, heatmap, int(target))
+    entries = {"deletion_auc": round(fm["deletion_auc"], 4),
+               "insertion_auc": round(fm["insertion_auc"], 4)}
+    if gt_bbox is not None:
+        entries["pointing_game_hit"] = bool(pointing_game(heatmap, gt_bbox))
+    return entries
 
 # --- artifacts -------------------------------------------------------------
 

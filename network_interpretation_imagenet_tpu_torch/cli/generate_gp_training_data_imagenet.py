@@ -34,6 +34,9 @@ def parse_args(argv=None):
     p = common.build_parser(__doc__)
     p.add_argument("--bbox_threshold", type=int, default=180)
     p.add_argument("--skip-threshold-search", action="store_true")
+    p.add_argument("--fidelity", action="store_true",
+                   help="also report deletion/insertion AUC (and the pointing game with gt "
+                        "boxes) for the produced heatmap")
     return p.parse_args(argv)
 
 
@@ -47,7 +50,7 @@ def compute(args):
     if label is not None and target != label:
         print(f"[warn] wrong prediction (pred={target}, label={label})")
 
-    seg = common.segment_display(disp, common.segment_config(args))
+    seg = common.segment_display(disp, common.segment_config(args), args.device)
     print(f"number of segments: {seg.max() + 1}")
     out = random_window_saliency(engine, image, seg, num_samples=args.num_mask_samples,
                                  window_fraction=args.window_fraction, seed=args.seed,
@@ -73,6 +76,8 @@ def compute(args):
         iou, pred_box = localization_score(out.heatmap, gt_bbox, args.bbox_threshold)
         payload["IOU"] = round(float(iou), 4)
         payload["pred_box_xywh"] = [int(v) for v in pred_box]
+    if args.fidelity:
+        payload.update(common.fidelity_entries(engine, image, out.heatmap, target, gt_bbox))
     return payload, {"disp": disp, "segments": seg, "out": out, "threshold": thr}
 
 

@@ -41,7 +41,7 @@ def compute(args):
         second = copy.copy(args)
         second.eval_img_index = args.eval_img_index + 1
         displays = [common.resolve_image(a)[1] for a in (args, second)]
-    segments = [common.segment_display(disp, cfg) for disp in displays]
+    segments = [common.segment_display(disp, cfg, args.device) for disp in displays]
     counts = [int(seg.max()) + 1 for seg in segments]
     for i, n in enumerate(counts):
         print(f"image {i}: {n} segments")

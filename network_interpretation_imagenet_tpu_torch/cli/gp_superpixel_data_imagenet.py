@@ -35,7 +35,7 @@ def compute(args):
     engine = common.build_engine(args)
     target, _ = engine.predict_one(image)
 
-    seg = common.segment_display(disp, common.segment_config(args))
+    seg = common.segment_display(disp, common.segment_config(args), args.device)
     out = random_window_saliency(engine, image, seg, num_samples=args.num_mask_samples,
                                  window_fraction=args.window_fraction, seed=args.seed,
                                  target=target)

@@ -39,7 +39,7 @@ DATASETS = {
 
 @dataclasses.dataclass(frozen=True)
 class SegmentConfig:
-    # Only Felzenszwalb is ported; the SLIC fields come with segment/slic.py.
+    # "felzenszwalb" (host, the reference's) or "slic" (k-means on the device).
     method: str = "felzenszwalb"
     # scale=None -> area-adaptive max(1, 100*H*W/224^2): the reference's
     # scale=100 is a 224^2 calibration in pixel-count units, so a fixed 100
@@ -48,6 +48,12 @@ class SegmentConfig:
     scale: "float | None" = None
     sigma: float = 0.5
     min_size: int = 50
+    # slic params
+    n_segments: int = 48            # target number of superpixels
+    compactness: float = 10.0
+    slic_iters: int = 10
+    # The host pass merging SLIC islands, so superpixels are connected as FH's are.
+    enforce_connectivity: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,3 @@
-"""The masked-forward engine and the per-image saliency pipeline."""
+"""The masked-forward engine, the per-image saliency pipelines, the BO
+explanation and the attribution family (gradients, occlusion, RISE, CAMs,
+XRAI, learned masks), its fidelity metrics and sanity checks."""

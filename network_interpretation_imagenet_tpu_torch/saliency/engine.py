@@ -70,7 +70,10 @@ class SaliencyEngine:
     ``device=None`` means the card, and raises without one; pass
     ``device="cpu"`` to run on the CPU. ``compute_dtype=None`` takes the
     bundle's dtype. TF32 is switched off for cuDNN and matmuls, so an f32
-    engine computes in full f32."""
+    engine computes in full f32. ``variables`` is the state dict on the
+    engine's device (f32), which the attribution methods take with
+    ``bundle.logits`` (the differentiable path) or :meth:`folded_logits`;
+    ``model`` is its folded plan."""
 
     def __init__(self, bundle: ModelBundle, state_dict, mask_batch: int = 256,
                  compute_dtype: torch.dtype = None, device=None) -> None:
@@ -80,7 +83,8 @@ class SaliencyEngine:
         self.compute_dtype = bundle.dtype if compute_dtype is None else compute_dtype
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = FoldedResNet(state_dict, bundle.module.stage_sizes,
+        self.variables = {k: torch.as_tensor(v).to(self.device) for k, v in state_dict.items()}
+        self.model = FoldedResNet(self.variables, bundle.module.stage_sizes,
                                   self.compute_dtype, self.device)
         # bo_pipeline.fused_runner's runners (and their CUDA graphs), by static config.
         self.fused_runners: dict = {}
@@ -91,6 +95,16 @@ class SaliencyEngine:
         if isinstance(array, torch.Tensor):
             return array.to(self.device, _TORCH_DTYPE[np.dtype(dtype)]).contiguous()
         return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(self.device)
+
+    @torch.inference_mode()
+    def folded_logits(self, variables, images: torch.Tensor) -> torch.Tensor:
+        """The masked forwards' ``logits_fn(variables, images)``: ``images``
+        (NHWC, cast to the compute dtype) through :attr:`model` -> f32 logits,
+        with B2 on the card. No gradient. ``variables`` must be this engine's
+        own, the weights its plan was folded from."""
+        if variables is not self.variables:
+            raise ValueError("folded_logits runs the engine's own weights: pass engine.variables")
+        return self.model(images.to(self.compute_dtype).contiguous())
 
     @torch.inference_mode()
     def predict_logits_device(self, images) -> torch.Tensor:

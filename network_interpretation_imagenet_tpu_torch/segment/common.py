@@ -1,5 +1,6 @@
-"""Relabelling and the segmentation dispatcher (port of ``segment/common.py``;
-only the Felzenszwalb branch is ported)."""
+"""Relabelling and the segmentation dispatcher (port of ``segment/common.py``):
+Felzenszwalb on the host, SLIC's k-means on the device with its
+connectivity pass and relabelling on the host."""
 
 from __future__ import annotations
 
@@ -28,13 +29,16 @@ def relabel_sequential(labels: np.ndarray) -> np.ndarray:
     return remap[labels].astype(np.int32)
 
 
-def segment_image(img_u8: np.ndarray, cfg: SegmentConfig) -> np.ndarray:
+def segment_image(img_u8: np.ndarray, cfg: SegmentConfig, device=None) -> np.ndarray:
     """uint8 [H, W, C] display image (``ops.preprocess.to_display_uint8``) ->
-    int32[H, W] contiguous labels."""
+    int32[H, W] contiguous labels. SLIC runs on ``device`` (``None``: the
+    card); Felzenszwalb is host work."""
     from network_interpretation_imagenet_tpu_torch.segment.felzenszwalb import felzenszwalb
 
+    if cfg.method == "slic":
+        return slic_postpass_host(slic_batch_device([img_u8], cfg, device).cpu().numpy(), cfg)[0]
     if cfg.method != "felzenszwalb":
-        raise ValueError(f"segmentation method {cfg.method!r} is not ported")
+        raise ValueError(f"unknown segmentation method {cfg.method}")
     scale = cfg.scale
     if scale is None:
         # Area-adaptive default (see SegmentConfig.scale).
@@ -43,14 +47,40 @@ def segment_image(img_u8: np.ndarray, cfg: SegmentConfig) -> np.ndarray:
     return felzenszwalb(img_u8, scale=scale, sigma=cfg.sigma, min_size=cfg.min_size)
 
 
-def segment_image_batch(displays, cfg: SegmentConfig) -> list:
+def segment_image_batch(displays, cfg: SegmentConfig, device=None) -> list:
     """Segment N display images; a list of int32[H, W] label maps equal to
-    per-image :func:`segment_image` calls. Felzenszwalb's hot path (scipy's
-    smoothing and the native kernel) releases the GIL, so the images fan out
-    over a thread pool of up to 8 workers."""
+    per-image :func:`segment_image` calls. SLIC runs the N k-means as one
+    batch on ``device`` (``None``: the card). Felzenszwalb's hot path
+    (scipy's smoothing and the native kernel) releases the GIL, so the images
+    fan out over a thread pool of up to 8 workers."""
     displays = list(displays)
+    if cfg.method == "slic" and displays:
+        return slic_postpass_host(slic_batch_device(displays, cfg, device).cpu().numpy(), cfg)
     workers = min(8, len(displays), os.cpu_count() or 1)
     if workers <= 1:
         return [segment_image(d, cfg) for d in displays]
     with ThreadPoolExecutor(max_workers=workers) as pool:
         return list(pool.map(lambda d: segment_image(d, cfg), displays))
+
+
+def slic_batch_device(displays, cfg: SegmentConfig, device=None):
+    """The device half of SLIC: the batched k-means of N same-shape display
+    images, int32 [N, H, W] labels left on ``device`` (``None``: the card)."""
+    from network_interpretation_imagenet_tpu_torch.segment.slic import slic_batch
+
+    return slic_batch(displays, n_segments=cfg.n_segments, compactness=cfg.compactness,
+                      num_iters=cfg.slic_iters, device=device)
+
+
+def slic_postpass_host(segs: np.ndarray, cfg: SegmentConfig) -> list:
+    """The host half of SLIC: the connectivity pass and the relabelling of
+    each image of an [N, H, W] label batch."""
+    from network_interpretation_imagenet_tpu_torch.segment.slic import enforce_connectivity
+
+    def post(seg):
+        seg = np.asarray(seg, np.int32)
+        if cfg.enforce_connectivity:
+            seg = enforce_connectivity(seg)
+        return relabel_sequential(seg)
+
+    return [post(seg) for seg in np.asarray(segs)]

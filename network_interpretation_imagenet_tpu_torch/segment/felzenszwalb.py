@@ -1,6 +1,8 @@
 """Felzenszwalb-Huttenlocher segmentation: native C++ kernel + numpy plain version.
 
-Port of ``segment/felzenszwalb.py:felzenszwalb`` of the JAX package. The
+Port of ``segment/felzenszwalb.py`` of the JAX package: ``felzenszwalb``,
+XRAI's multi-scale ``felzenszwalb_ladder``, and the native helpers of SLIC's
+connectivity pass (``label_components``, ``slic_postpass_native``). The
 serial union-find is host work: ``native/felzenszwalb.cc`` (the JAX
 package's source, unchanged) is compiled with ``g++`` at first use into
 ``_build/`` and loaded with ctypes. A failed build raises; the numpy
@@ -57,6 +59,19 @@ def _load_native() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_float, ctypes.c_int32,
             ctypes.POINTER(ctypes.c_int32),
         ]
+        i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+        lib.label_components.restype = ctypes.c_int32
+        lib.label_components.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, i32p]
+        lib.slic_postpass.restype = ctypes.c_int32
+        lib.slic_postpass.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
+                                      i32p]
+        lib.felzenszwalb_ladder.restype = None
+        lib.felzenszwalb_ladder.argtypes = [f32p, ctypes.c_int32, ctypes.c_int32,
+                                            ctypes.c_int32, f32p, i32p, ctypes.c_int32,
+                                            i32p, i32p]
+        lib.xrai_greedy_rank.restype = ctypes.c_int32
+        lib.xrai_greedy_rank.argtypes = [ctypes.POINTER(ctypes.c_double), i32p,
+                                         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f32p]
         _lib = lib
         return lib
 
@@ -176,3 +191,86 @@ def felzenszwalb(image: np.ndarray, scale: float = 100.0, sigma: float = 0.5,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
     return out.reshape(h, w)
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def label_components(labels: np.ndarray):
+    """4-connectivity connected components of an int32 label map (pixels join
+    iff adjacent and equal), by the native kernel: ``(comp int32[H, W],
+    n_components)`` with contiguous ids in raster first-occurrence order."""
+    lib = _load_native()
+    labels = np.ascontiguousarray(labels, np.int32)
+    h, w = labels.shape
+    out = np.empty(h * w, np.int32)
+    n = lib.label_components(_ptr(labels, ctypes.c_int32), h, w, _ptr(out, ctypes.c_int32))
+    return out.reshape(h, w), int(n)
+
+
+def slic_postpass_native(labels: np.ndarray, min_fraction: float) -> np.ndarray:
+    """The native SLIC connectivity pass (components, keep rule, adjacency
+    absorption; the spec is ``segment.slic.enforce_connectivity``'s): the
+    absorbed int32 label map, not relabelled."""
+    lib = _load_native()
+    labels = np.ascontiguousarray(labels, np.int32)
+    h, w = labels.shape
+    out = np.empty(h * w, np.int32)
+    lib.slic_postpass(_ptr(labels, ctypes.c_int32), h, w, ctypes.c_float(min_fraction),
+                      _ptr(out, ctypes.c_int32))
+    return out.reshape(h, w)
+
+
+def felzenszwalb_ladder(image: np.ndarray, scales, sigma: float = 0.5, min_sizes=None,
+                        backend: str = "native") -> list:
+    """Multi-scale FH oversegmentation (XRAI's ladder): the smoothing, the
+    edge build and the sort are shared by every scale, only the union-find
+    passes repeat, and each scale's labels equal ``felzenszwalb(image, s,
+    sigma, m)``'s. ``min_sizes`` defaults to XRAI's ``max(round(s / 10),
+    5)``. Returns a list of int32[H, W] contiguous label maps, one per scale.
+    ``backend="numpy"`` runs the plain version per scale."""
+    scales = [float(s) for s in scales]
+    if min_sizes is None:
+        min_sizes = [max(int(round(s / 10.0)), 5) for s in scales]
+    min_sizes = [int(m) for m in min_sizes]
+    if len(min_sizes) != len(scales):
+        raise ValueError(f"min_sizes length {len(min_sizes)} != scales {len(scales)}")
+    if not scales:
+        return []
+    img = np.asarray(image)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    img = _smooth(img.astype(np.float32), sigma)
+    if backend == "numpy":
+        return [_felzenszwalb_numpy(img, s, m) for s, m in zip(scales, min_sizes)]
+    if backend != "native":
+        raise ValueError(f"unknown backend {backend!r}")
+    lib = _load_native()
+    h, w, c = img.shape
+    n_s = len(scales)
+    labels = np.empty(n_s * h * w, np.int32)
+    counts = np.empty(n_s, np.int32)
+    lib.felzenszwalb_ladder(_ptr(np.ascontiguousarray(img, np.float32), ctypes.c_float),
+                            h, w, c, _ptr(np.asarray(scales, np.float32), ctypes.c_float),
+                            _ptr(np.asarray(min_sizes, np.int32), ctypes.c_int32), n_s,
+                            _ptr(labels, ctypes.c_int32), _ptr(counts, ctypes.c_int32))
+    return [labels[i * h * w:(i + 1) * h * w].reshape(h, w) for i in range(n_s)]
+
+
+def xrai_greedy_rank_native(attr: np.ndarray, ids: np.ndarray, min_area: int):
+    """The native XRAI greedy ranking (``native/felzenszwalb.cc``): f64 [H*W]
+    attribution and int32 [scales, H*W] zero-based segment ids -> (f32
+    [H*W] rank heat, number of regions)."""
+    lib = _load_native()
+    flat = np.ascontiguousarray(attr, np.float64)
+    ids = np.ascontiguousarray(ids, np.int32)
+    out = np.empty(flat.size, np.float32)
+    n = lib.xrai_greedy_rank(_ptr(flat, ctypes.c_double), _ptr(ids, ctypes.c_int32),
+                             ctypes.c_int32(ids.shape[0]), ctypes.c_int32(flat.size),
+                             ctypes.c_int32(int(min_area)), _ptr(out, ctypes.c_float))
+    if n < 0:
+        raise RuntimeError("xrai_greedy_rank failed")
+    return out, int(n)

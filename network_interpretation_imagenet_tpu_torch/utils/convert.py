@@ -22,7 +22,7 @@ import torch
 _RENAME = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
 
 
-def _torch_name(flax_path) -> str:
+def torch_name(flax_path) -> str:
     parts = []
     for p in flax_path:
         if p.startswith("layer") and "_" in p:
@@ -40,13 +40,13 @@ def resnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if "kernel" in params:
             k = np.asarray(params["kernel"], np.float32)
             w = np.transpose(k, (3, 2, 0, 1)) if k.ndim == 4 else k.T
-            sd[_torch_name(path) + ".weight"] = torch.from_numpy(np.ascontiguousarray(w))
+            sd[torch_name(path) + ".weight"] = torch.from_numpy(np.ascontiguousarray(w))
             if "bias" in params:
-                sd[_torch_name(path) + ".bias"] = torch.from_numpy(
+                sd[torch_name(path) + ".bias"] = torch.from_numpy(
                     np.asarray(params["bias"], np.float32).copy())
             return
         if "scale" in params:
-            name = _torch_name(path)
+            name = torch_name(path)
             for src, dst in (("scale", "weight"), ("bias", "bias")):
                 sd[f"{name}.{dst}"] = torch.from_numpy(np.asarray(params[src], np.float32).copy())
             for src, dst in (("mean", "running_mean"), ("var", "running_var")):

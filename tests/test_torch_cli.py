@@ -72,8 +72,13 @@ def test_explain_runs_without_writing(tmp_path):
     assert set(payload) == SINGLE_KEYS - {"IOU", "pred_box_xywh", "gt_box_xywh"}
     assert len(payload["bo_xp"]) == 3 and len(outputs) == 1
     assert not os.path.exists(tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="A19"):
-        cli.explain(cli.parse_args(["--synthetic", "--fidelity", "--device", "cpu"]))
+    # --fidelity adds the deletion and insertion AUCs (no gt box: no pointing game).
+    payload, _ = cli.explain(cli.parse_args(["--synthetic", "--arch", "resnet50", "--dtype",
+                                             "float32", "--device", "cpu", "--n_iters", "1",
+                                             "--n_pre_samples", "2", "--fidelity"]))
+    assert set(payload) == SINGLE_KEYS - {"IOU", "pred_box_xywh", "gt_box_xywh"} | {
+        "deletion_auc", "insertion_auc"}
+    assert 0.0 <= payload["deletion_auc"] <= 1.0 and 0.0 <= payload["insertion_auc"] <= 1.0
 
 
 def test_ckpt_reads_torch_state_dicts_only(tmp_path):

@@ -171,7 +171,13 @@ def test_incremental_gp_matches_jax(ls):
             assert_close(linv, jstate.linv, 1e-4)
             assert_close(tstate.logdet, jstate.logdet, 1e-5)
             assert_close(tmu, jmu, 1e-4)
-            assert_close(tstd, jstd, 1e-4)
+            # Near the noise floor (var ~ NOISE) both packages' 1 - k.K^-1.k
+            # cancels in f32 to ~1e-6; sqrt magnifies that by 1/(2 std), so the
+            # variance is held absolutely and the std only where std >= 1e-2.
+            tvar, jvar = np.asarray(tstd, np.float64) ** 2, np.asarray(jstd, np.float64) ** 2
+            assert np.abs(tvar - jvar).max() <= 5e-6
+            away = np.asarray(jstd) >= 1e-2
+            assert_close(np.asarray(tstd)[away], np.asarray(jstd)[away], 1e-4)
             assert_close(tmll, jmll, 1e-5)
             continue
         assert_close(tmu, jmu, 1e-3)

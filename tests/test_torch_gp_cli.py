@@ -143,8 +143,11 @@ def test_generate_compute_writes_nothing(ckpt, tmp_path):
     payload, result = gen.compute(args)
     assert "mask_threshold" not in payload and result["threshold"] is None
     assert not os.path.exists(tmp_path / "o")
-    with pytest.raises(SystemExit):   # --fidelity is not a flag of the port's generator
-        gen.parse_args(["--synthetic", "--fidelity", "--device", "cpu"])
+    # --fidelity adds the deletion and insertion AUCs and, with a gt box, the pointing game.
+    payload, _ = gen.compute(gen.parse_args(_argv(ckpt, str(tmp_path / "o"), True)
+                                            + ["--skip-threshold-search", "--fidelity"]))
+    assert {"deletion_auc", "insertion_auc", "pointing_game_hit"} <= set(payload)
+    assert not os.path.exists(tmp_path / "o")
 
 
 def _assert_payload_close(got, want, exact=(), close=(), rtol=1e-4):

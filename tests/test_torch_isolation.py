@@ -4,8 +4,10 @@ A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``network_interpretation_imagenet_tpu`` imports every module of the port
 and runs the CPU slice end to end (segment, predict, masked evals,
 heatmap, localization score), one small BO explanation, the knockout,
-threshold-search and multi-image paths, both GP surrogates and a
-checkpoint round trip, in the spirit of
+threshold-search and multi-image paths, both GP surrogates, a
+checkpoint round trip and one attribution of each kind (an input
+gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), in the
+spirit of
 tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
@@ -83,6 +85,17 @@ probs = variational.predict_proba(vgp, xs.astype(np.float32))
 save_checkpoint({"mean": mean}, tmp, is_best=True)
 assert np.array_equal(restore_checkpoint(tmp, "model_best")["mean"], mean.numpy())
 assert np.isfinite(var.numpy()).all() and np.isfinite(probs.numpy()).all()
+from network_interpretation_imagenet_tpu_torch.saliency import gradient
+from network_interpretation_imagenet_tpu_torch.saliency.eval_metrics import deletion_insertion_auc
+grad = gradient.input_gradient(bundle.logits, engine.variables, image, 3)
+occ = gradient.occlusion_map(engine.folded_logits, engine.variables, image, 3, batch=16,
+                             compute_dtype=torch.float32)
+assert grad.shape == occ.shape == (32, 32) and float(grad.max()) > 0
+fid = deletion_insertion_auc(engine, image, grad.numpy(), 3, steps=4)
+assert 0.0 <= fid["deletion_auc"] <= 1.0 and 0.0 <= fid["insertion_auc"] <= 1.0
+slic_seg = segment_image(to_display_uint8(torch.from_numpy(image)).numpy(),
+                         SegmentConfig(method="slic", n_segments=9), device="cpu")
+assert slic_seg.shape == (32, 32) and slic_seg.max() >= 1
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -109,5 +122,8 @@ def test_no_jax_import_in_port_sources():
     modules = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
     for name in ("ops.bottleneck_chain", "gp.kron", "gp.variational", "utils.checkpoint",
                  "cli.generate_gp_training_data_imagenet", "cli.gp_superpixel_data_imagenet",
-                 "cli.gp_regression", "cli.gp_classification"):
+                 "cli.gp_regression", "cli.gp_classification", "saliency.eval_metrics",
+                 "saliency.gradient", "saliency.xrai", "saliency.learned_mask",
+                 "saliency.sanity", "segment.slic", "ops.resize", "cli.occlusion_saliency",
+                 "cli.compare_saliency_methods", "cli.attribution_sanity"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name
