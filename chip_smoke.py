@@ -16,7 +16,10 @@ hand-written kernel against its plain PyTorch version on the card:
   4. B2 bottleneck_chain vs its plain version at all four ResNet-101 stage
      shapes with the real block counts, block by block within bf16
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
-     N=8 loop's), 32 and 256 (and f32 at two shapes); per stage at B=256 its
+     N=8 loop's), 32 and 256, 4 and 12 (the sweep's flushes of 4 images: a
+     predict or a BO iteration, the BO pre-samples) and 100 (the window
+     CLIs' default chunk); f32 at B = 1, 2 and 256 (the f32 sweep's
+     predicts and chunk) at all four shapes and at B=4 at two; per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
      block and a bf16 cuDNN yardstick; at the BO's batches the same
      yardstick eager, and (last of all, [B2 graphs]) with the kernel as CUDA
@@ -46,8 +49,8 @@ hand-written kernel against its plain PyTorch version on the card:
      minimal-mask threshold bank) on its own engine (B1 1, B2 12), and its
      parts timed warm;
  10. [resnet18]: the CLIs' default model, ResNet-18 (no B2): its bf16
-     folded plan against the plain eval-mode net in f32, and the
-     generator's compute with no --arch (B1 1, B2 0);
+     folded plan against the plain eval-mode net in f32 (folded_vs_plain),
+     and the generator's compute with no --arch (B1 1, B2 0);
  11. [knockout]: knockout_saliency, 1024 masks at M = 1 and 5 (B1 0, B2 16
      each; the heatmap against the bank-free sum), and masked evals/s;
  12. [multi]: eval_window_masks_multi, N=8 x K=128 (B1 8, B2 16), every
@@ -86,10 +89,31 @@ hand-written kernel against its plain PyTorch version on the card:
      the flagship CLI with --fidelity (B1 11, B2 52);
  17. [slic]: SLIC labels on the card against the CPU (k-means, then the
      connectivity pass and the relabelling), and its time on the card;
- 18. [B2 graphs], last: B2 and its bf16 cuDNN yardstick as CUDA graph
+ 18. [resnext] (run after [resnet18]): Wide-ResNet-50-2 and ResNeXt-50
+     32x4d, each folded_vs_plain on 32 masked images and 1024 window masks
+     on its own engine (B1 4; B2 16 for Wide, 0 for ResNeXt, whose grouped
+     3x3 B2 does not run) with evals/s; Wide-ResNet-101-2's plan at B=4
+     (B2 48: its stage 3 is one chain of 22 blocks); Wide-ResNet-50-2's four
+     chain shapes (C = 2P, P up to 1024) block by block against the plain
+     version and timed at B=256 against bf16 cuDNN and the chain bound, and
+     a 22-block chain at C=1024, P=512 block by block;
+ 19. [sweep] (run before [B2 graphs]): the val-set sweep on 8 synthetic
+     images at ResNet-101 bf16, every lane with its launches held: the
+     flushes' batched predicts at B = 4 and 12 through B2 against the plain
+     path (within 0.05 x max |logit|, as in [main]); streaming windows (1024 masks; each row against the per-image path on
+     the same host-sampled starts: target, segments, survival and heatmap
+     exact), image_batch=4 windows (bf16 agreement with streaming printed),
+     knockouts streaming and at image_batch=4, a journal cut after 3 images
+     and resumed (rows and heatmaps equal the uninterrupted run's), the
+     device idle share of one streaming sweep, f32 batched rows against
+     streaming rows (exact), the BO sweep at image_batch=4 (agreement with
+     single-image calls printed), RISE and input-gradient attribution
+     sweeps, and the CLI's window, --bo and --attribute rise lanes (4
+     images, their own engines);
+ 20. [B2 graphs], last: B2 and its bf16 cuDNN yardstick as CUDA graph
      replays at the BO's batches and at the attribution family's 41, 64,
      66 and 250 (each of these also checked block by block against the
-     plain version at B2_TOL).
+     plain version at B2_TOL), with the chain bound at each batch.
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -113,20 +137,29 @@ SEED = 0
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12   # HBM3 (NVIDIA data sheet)
 STAGES_101 = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 22), (7, 2048, 512, 2))
-B2_BATCHES = (1, 3, 8, 24, 32, MASK_BATCH)
+SWEEP_BATCH = 4              # the [sweep] phase's image_batch for the flushed lanes
+CLI_MASKS = 100              # the CLIs' default --num_mask_samples: one chunk of 100
+# B2's block-by-block batches: the BO loops', 32, the main path's chunk, and
+# every batch the sweep's lanes give it (a flush's predict and BO iteration
+# at SWEEP_BATCH, its BO pre-samples at 3 * SWEEP_BATCH, the CLIs' chunk).
+B2_BATCHES = (1, 3, SWEEP_BATCH, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MASK_BATCH)
+B2_F32_BATCHES = (1, 2, MASK_BATCH)   # the f32 sweep lane's: predicts at 1 and 2, its chunk
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
 BO_IMAGES = 8                # bo_window_saliency_multi's N
 BO_BATCHES = (1, 3, 8, 24)   # the BO loops' forwards: single image, and N=8 images
 BO_SCORE_TOL = 0.05          # a BO score vs the engine's at another batch (bf16 rounding)
 MULTI_K = 128                # masks per image of the N=8 multi-image window grid
+# Wide-ResNet-50-2's chains (H, C, P, blocks): C = 2P, P = 2 * planes.
+WIDE_STAGES_50 = ((56, 256, 128, 2), (28, 512, 256, 3), (14, 1024, 512, 5), (7, 2048, 1024, 2))
+SWEEP_IMAGES = 8             # the [sweep] phase's synthetic images
 # GP card vs CPU on this script's inputs. Errors read on an H100 with full
 # f32 products: Kronecker 3.1e-5, -ELBO 1.5e-4, p(y=1) 5.9e-4; with the
 # variational fit's backward left to TF32, p(y=1) 1.6e-3 and -ELBO 2.1e-4.
 GP_TOL = 1e-4                # Kronecker GP: relative to the tensor's scale
 VGP_LOSS_TOL = 5e-4          # variational GP's -ELBO history: relative
 VGP_PROB_TOL = 1e-3          # its p(y=1): absolute
-R18_TOL = 2e-2               # ResNet-18 bf16 plan vs plain f32 net: x max|logit| (2^-8 = 3.9e-3)
+NET_TOL = 2e-2               # a bf16 folded plan vs its plain f32 net: x max|logit| (2^-8 = 3.9e-3)
 # Occlusion's last chunk (169 = 2 x 64 + 41), occlusion / Score-CAM chunks,
 # both fidelity curves, RISE chunks.
 ATTR_BATCHES = (41, 64, 66, 250)
@@ -250,7 +283,7 @@ def b2_costs(h, c, p, n, batch):
     design that keeps three launches per block, with t1 and t2 in device
     memory."""
     m = batch * h * h
-    flops = 34 * m * p * p * n
+    flops = (4 * c * p + 18 * p * p) * m * n   # reduce 2mcp + 3x3 18mp^2 + expand 2mpc
     nbytes = 2 * m * c * 2 + n * ((2 * c * p + 9 * p * p) * 2 + (2 * p + c) * 4)
     convs = ((2 * m * c * p, (m * c + m * p + c * p) * 2 + 4 * p),                # 1x1 reduce
              (18 * m * p * p, (2 * m * p + 9 * p * p) * 2 + 4 * p),                # 3x3
@@ -810,46 +843,69 @@ def gen_phase(engine, smi, by_path):
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
 
 
-def resnet18_phase(normalized, segments, firsts, width, smi, by_path):
-    """The CLIs' default model, ResNet-18 (BasicBlock stages: every block is
-    a cuDNN conv, no B2). Its bf16 FoldedResNet against the plain eval-mode
-    ResNet in f32 on 32 masked images of the main path: logits within
-    R18_TOL of their scale, and the same argmax wherever the plain net's
-    top two stand further apart than twice that error. Then the generator's
-    compute with no --arch: B1 1, B2 0."""
-    import tempfile
-
+def folded_vs_plain(arch, x):
+    """``arch``'s bf16 FoldedResNet against its plain eval-mode net in f32 on
+    the f32 masked images ``x`` (on the card), seed-SEED weights: logits
+    within NET_TOL of their scale, and the same argmax wherever the plain
+    net's top two stand further apart than twice that error. Returns
+    (bundle, state dict, a summary for the log line)."""
     import torch
 
-    from network_interpretation_imagenet_tpu_torch.cli import (
-        generate_gp_training_data_imagenet as gen,
-    )
     from network_interpretation_imagenet_tpu_torch.models import FoldedResNet, create_model
-    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch_plain
 
-    dev = torch.device("cuda")
-    bundle = create_model("resnet18", "imagenet")
+    bundle = create_model(arch, "imagenet", dtype=torch.bfloat16)
     sd = bundle.init(SEED)
-    folded = FoldedResNet(sd, bundle.module.stage_sizes, torch.bfloat16, dev)
+    folded = FoldedResNet(sd, bundle.module.stage_sizes, torch.bfloat16, x.device)
     net = bundle.module
     net.load_state_dict(sd)
-    net = net.eval().to(dev)
-    x = masked_batch_plain(torch.from_numpy(normalized).to(dev), torch.from_numpy(segments).to(dev),
-                           torch.from_numpy(firsts[:32]).to(dev), width, torch.float32)
+    net = net.eval().to(x.device)
     xb = x.to(torch.bfloat16)
     with torch.inference_mode():
         got, want = folded(xb), net(x)
-        ms = {"folded bf16": time_ms(lambda: folded(xb), 10), "plain f32": time_ms(lambda: net(x), 10)}
+        ms = {"folded bf16": time_ms(lambda: folded(xb), 10),
+              "plain f32": time_ms(lambda: net(x), 10)}
+    net.cpu()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     top2 = torch.topk(want, 2).values
     held = (top2[:, 0] - top2[:, 1]) > 2 * err
     same = got.argmax(-1) == want.argmax(-1)
-    if not torch.isfinite(got).all() or err > R18_TOL * scale or not same[held].all():
-        raise AssertionError(f"ResNet-18: folded bf16 vs plain f32 err {err} (max |logit| "
+    if not torch.isfinite(got).all() or err > NET_TOL * scale or not same[held].all():
+        raise AssertionError(f"{arch}: folded bf16 vs plain f32 err {err} (max |logit| "
                              f"{scale}), argmax equal on {int(same[held].sum())} of "
                              f"{int(held.sum())} held images")
+    n = x.shape[0]
+    return bundle, sd, (
+        f"folded bf16 vs plain f32, {n} masked images: max logit err {err:.4g} (max |logit| "
+        f"{scale:.4g}, {err / scale:.3g} of it), argmax equal on {int(same[held].sum())}/"
+        f"{int(held.sum())} held images ({int(same.sum())}/{n} in all); forward of {n} (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
 
+
+def masked_images(normalized, segments, firsts, width, n=32):
+    """The main path's first ``n`` window-masked images, f32 on the card."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch_plain
+
+    dev = torch.device("cuda")
+    return masked_batch_plain(torch.from_numpy(normalized).to(dev),
+                              torch.from_numpy(segments).to(dev),
+                              torch.from_numpy(firsts[:n]).to(dev), width, torch.float32)
+
+
+def resnet18_phase(normalized, segments, firsts, width, smi, by_path):
+    """The CLIs' default model, ResNet-18 (BasicBlock stages: every block is
+    a cuDNN conv, no B2): folded_vs_plain on 32 masked images of the main
+    path. Then the generator's compute with no --arch: B1 1, B2 0."""
+    import tempfile
+
+    from network_interpretation_imagenet_tpu_torch.cli import (
+        generate_gp_training_data_imagenet as gen,
+    )
+
+    _, _, summary = folded_vs_plain("resnet18", masked_images(normalized, segments, firsts,
+                                                              width))
     with tempfile.TemporaryDirectory() as tmp:
         args = gen.parse_args(["--synthetic", "--out", tmp])
         if args.arch != "resnet18":
@@ -861,13 +917,252 @@ def resnet18_phase(normalized, segments, firsts, width, smi, by_path):
     levels, keep = payload["levels"], payload["keeps_prediction"]
     if not (np.isfinite(result["out"].heatmap).all() and len(levels) == len(keep) > 0):
         raise AssertionError(f"gen (default arch) payload {payload}")
-    log(f"[resnet18] {smi}: folded bf16 vs plain f32, 32 masked images: max logit err {err:.4g} "
-        f"(max |logit| {scale:.4g}, {err / scale:.3g} of it), argmax equal on "
-        f"{int(same[held].sum())}/{int(held.sum())} held images ({int(same.sum())}/32 in all); "
-        f"forward of 32 (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-        + f"; generator compute with no --arch {seconds * 1e3:.1f} ms with its engine build, "
-        f"{len(levels)} levels, threshold {result['threshold']}; launches "
-        + json.dumps(by_path["gen_resnet18"]))
+    log(f"[resnet18] {smi}: {summary}; generator compute with no --arch {seconds * 1e3:.1f} ms "
+        f"with its engine build, {len(levels)} levels, threshold {result['threshold']}; "
+        "launches " + json.dumps(by_path["gen_resnet18"]))
+
+
+def resnext_phase(normalized, segments, firsts, width, smi, by_path):
+    """ResNeXt and Wide-ResNet at 224 bf16 (see the module docstring, 19)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+
+    dev = torch.device("cuda")
+    x = masked_images(normalized, segments, firsts, width)
+    chunks = NUM_SAMPLES // MASK_BATCH
+    parts = []
+    for arch, path, chains in (("wide_resnet50_2", "wide_resnet50_2_window", 4),
+                               ("resnext50_32x4d", "resnext50_window", 0)):
+        bundle, sd, summary = folded_vs_plain(arch, x)
+        engine = SaliencyEngine(bundle, sd, mask_batch=MASK_BATCH, device="cuda")
+        target = engine.predict_one(normalized)[0]
+        counted(by_path, path, lambda: engine.eval_window_masks(
+            normalized, segments, firsts[:NUM_SAMPLES], width, target), chunks, chains * chunks)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.eval_window_masks(normalized, segments, firsts[:NUM_SAMPLES], width, target)
+            ts.append(time.perf_counter() - t0)
+        parts.append(f"{arch}: {summary}; {NUM_SAMPLES / float(np.median(ts)):.1f} masked "
+                     f"evals/s ({NUM_SAMPLES} masks, mask_batch {MASK_BATCH}), launches "
+                     + json.dumps(by_path[path]))
+        del engine, bundle, sd
+    _, _, summary = counted(by_path, "wide_resnet101_2_forward",
+                            lambda: folded_vs_plain("wide_resnet101_2", x[:4]), 0, 4 * 12)
+    parts.append(f"wide_resnet101_2 (stage 3 a chain of 22 blocks): {summary}, launches "
+                 + json.dumps(by_path["wide_resnet101_2_forward"]))
+    log(f"[resnext] {smi}: " + "; ".join(parts))
+    torch.cuda.empty_cache()
+
+    # Wide-ResNet's chain shapes (C = 2P), block by block and timed at B=256.
+    rng = np.random.RandomState(SEED + 2)
+    total = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
+    for h, c, p, n in WIDE_STAGES_50:
+        ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
+        xb = torch.from_numpy(np.abs(rng.randn(MASK_BATCH, h, h, c)).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+        block_err, outside, chain_err = check_chain(xb, ws, B2_TOL)
+        flops, nbytes, floor = b2_costs(h, c, p, n, MASK_BATCH)
+        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        ms = time_ms(lambda: bottleneck_chain(xb, ws), 10)
+        cudnn_ms = time_ms(cudnn_chain(xb, ws), 10)
+        for key, v in (("kernel", ms), ("cudnn", cudnn_ms), ("bound", bound)):
+            total[key] += v
+        log(f"[resnext] Wide B2 B={MASK_BATCH} H={h} C={c} P={p} blocks={n}: worst block err "
+            f"{block_err:.4g} (tol {B2_TOL} x max|plain|; {outside} of {xb.numel() * n} outside "
+            f"elementwise), whole-chain err {chain_err:.4g}; kernel {ms:.4f} ms, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the chain bound {bound:.4f} ms "
+            f"({flops:.4g} flop, {nbytes} bytes), 3-launch floor {floor:.4f} ms; yardstick bf16 "
+            f"cuDNN chain {cudnn_ms:.4f} ms")
+        del xb, ws
+    # Wide-ResNet-101-2's stage 3: 22 chained blocks at C=1024, P=512.
+    ws = b2_weights(rng, 1024, 512, 22, torch.bfloat16, dev)
+    xb = torch.from_numpy(np.abs(rng.randn(4, 14, 14, 1024)).astype(np.float32)
+                          ).to(dev, torch.bfloat16)
+    block_err, _, chain_err = check_chain(xb, ws, B2_TOL)
+    log(f"[resnext] {smi}: Wide-ResNet-50-2 chains per forward of {MASK_BATCH}: kernel "
+        f"{total['kernel']:.4f} ms, yardstick bf16 cuDNN {total['cudnn']:.4f} ms, chain bound "
+        f"{total['bound']:.4f} ms; Wide-ResNet-101-2 stage 3 (22 blocks) at B=4: worst block "
+        f"err {block_err:.4g}, whole-chain err {chain_err:.4g}")
+    torch.cuda.empty_cache()
+
+
+def sweep_phase(engine, smi, by_path):
+    """The val-set sweep's lanes at ResNet-101 224 bf16 (see the module
+    docstring, 20)."""
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import saliency_sweep as sweep_cli
+    from network_interpretation_imagenet_tpu_torch.config import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        BOConfig,
+        SegmentConfig,
+    )
+    from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import normalize
+    from network_interpretation_imagenet_tpu_torch.saliency import sweep
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.journal import SweepJournal
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    data = []
+    for i in range(SWEEP_IMAGES):
+        u8, gt = synthetic_image(SEED + 10 + i)
+        data.append((normalize(torch.from_numpy(u8.astype(np.float32) / 255.0), IMAGENET_MEAN,
+                               IMAGENET_STD).numpy(), None, gt))
+    seg_cfg = SegmentConfig()
+    n, chunks, flushes = SWEEP_IMAGES, NUM_SAMPLES // MASK_BATCH, SWEEP_IMAGES // SWEEP_BATCH
+    lines = []
+
+    # A flush's batched predict (B=4) and the BO pre-sample forward (B=12)
+    # through B2, against the folded net's plain path on the same images.
+    x = torch.from_numpy(np.stack([d[0] for d in data])).to("cuda")
+    x = torch.cat([x, x[:SWEEP_BATCH].flip(2)])
+    for b in (SWEEP_BATCH, 3 * SWEEP_BATCH):
+        got = engine.predict_logits_device(x[:b])
+        with torch.inference_mode():
+            want = engine.model(x[:b].to(engine.compute_dtype), plain=True)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not (torch.isfinite(got).all() and err <= 0.05 * scale):
+            raise AssertionError(f"sweep: predict at B={b} through B2 vs plain err {err} "
+                                 f"(max |logit| {scale})")
+        lines.append(f"predict at B={b} through B2 vs plain: max logit err {err:.4g} "
+                     f"(max |logit| {scale:.4g})")
+    del x
+    kw = dict(num_mask_samples=NUM_SAMPLES, seed=SEED, keep_heatmaps=True)
+
+    def rows(res):
+        return sorted(({k: v for k, v in r.items() if k != "seconds"} for r in res.per_image),
+                      key=lambda r: r["index"])
+
+    def run(path, fn, b1, b2):
+        """A sweep with its launches held; raises unless every image was explained."""
+        res = counted(by_path, path, fn, b1, b2)
+        if res.images_explained != n or res.images_failed or not all(
+                np.isfinite(h).all() for h in res.heatmaps.values()):
+            raise AssertionError(f"{path}: {res.images_explained} of {n} explained, "
+                                 f"{res.images_failed} failed")
+        lines.append(f"{path} {res.evals_per_sec:.1f} evals/s, p50 {res.p50_latency_s:.4f} s "
+                     f"per image, launches " + json.dumps(by_path[path]))
+        return res
+
+    stream = run("sweep_window_stream", lambda: sweep.saliency_sweep(engine, data, seg_cfg, **kw),
+                 n * chunks, n * (1 + chunks) * 4)
+    # Each row against the per-image path: the same host-sampled starts
+    # (RandomState(SEED + index)) through eval_window_masks.
+    for row in stream.per_image:
+        i = row["index"]
+        seg = segment_image(aggregate.normalize_to_uint8_np(data[i][0]), seg_cfg)
+        s = int(seg.max()) + 1
+        width = int(0.4 * s)
+        first = masking.sample_window_starts_host(SEED + i, NUM_SAMPLES, s, width)
+        target = engine.predict_one(data[i][0])[0]
+        r = engine.eval_window_masks(data[i][0], seg, first, width, target)
+        heat = aggregate.summed_superpixel_labels_np(seg, first, width, r.survived)
+        if (row["target"], row["num_segments"], row["survival"]) != (
+                target, s, float(np.mean(r.survived))) or not np.array_equal(
+                heat, stream.heatmaps[i]):
+            raise AssertionError(f"sweep stream: image {i}'s row differs from the per-image path")
+    batch = run("sweep_window_batch", lambda: sweep.saliency_sweep(
+        engine, data, seg_cfg, image_batch=SWEEP_BATCH, **kw), n * chunks,
+        (flushes + n * chunks) * 4)
+    agree = np.mean([np.array_equal(batch.heatmaps[i], stream.heatmaps[i]) for i in range(n)])
+    same_rows = np.mean([a == b for a, b in zip(rows(batch), rows(stream))])
+    lines.append(f"bf16 batched vs streaming: heatmaps equal on {agree:.3f}, rows on "
+                 f"{same_rows:.3f} of the images")
+    ko = run("sweep_knockout", lambda: sweep.saliency_sweep(engine, data, seg_cfg,
+                                                             mode="knockout", **kw),
+             0, n * (1 + chunks) * 4)
+    ko_batch = run("sweep_knockout_batch", lambda: sweep.saliency_sweep(
+        engine, data, seg_cfg, mode="knockout", image_batch=SWEEP_BATCH, **kw),
+        0, (flushes + n * chunks) * 4)
+    ko_agree = np.mean([np.array_equal(ko_batch.heatmaps[i], ko.heatmaps[i]) for i in range(n)])
+    lines.append(f"bf16 batched vs streaming knockouts: heatmaps equal on {ko_agree:.3f} of "
+                 "the images")
+    with tempfile.TemporaryDirectory() as tmp:
+        j = SweepJournal(f"{tmp}/j.jsonl", keep_heatmaps=True, config={"k": NUM_SAMPLES})
+        sweep.saliency_sweep(engine, data, seg_cfg, max_images=3, journal=j, **kw)
+        j.close()
+        j = SweepJournal(f"{tmp}/j.jsonl", resume=True, keep_heatmaps=True,
+                         config={"k": NUM_SAMPLES})
+        resumed = sweep.saliency_sweep(engine, data, seg_cfg, journal=j, **kw)
+        j.close()
+    if rows(resumed) != rows(stream) or any(not np.array_equal(resumed.heatmaps[i],
+                                                               stream.heatmaps[i])
+                                            for i in range(n)):
+        raise AssertionError("sweep: the journal resumed after 3 images differs from the "
+                             "uninterrupted run")
+    lines.append("journal cut after 3 images and resumed: rows and heatmaps equal the "
+                 "uninterrupted run's")
+    wall, busy = busy_ms(lambda: sweep.saliency_sweep(engine, data, seg_cfg, **kw))
+    lines.append(f"one streaming sweep under the profiler: wall {wall:.1f} ms, device busy "
+                 f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+
+    # f32: the batched flush's rows equal the streaming path's exactly.
+    e32 = SaliencyEngine(engine.bundle, engine.bundle.init(SEED), mask_batch=MASK_BATCH,
+                         compute_dtype=torch.float32, device="cuda")
+    kw32 = dict(num_mask_samples=MASK_BATCH, seed=SEED, keep_heatmaps=True)
+    s32 = sweep.saliency_sweep(e32, data[:2], seg_cfg, **kw32)
+    b32 = sweep.saliency_sweep(e32, data[:2], seg_cfg, image_batch=2, **kw32)
+    if rows(s32) != rows(b32) or any(not np.array_equal(s32.heatmaps[i], b32.heatmaps[i])
+                                     for i in range(2)):
+        raise AssertionError("sweep f32: batched rows differ from streaming rows")
+    lines.append(f"f32, 2 images x {MASK_BATCH} masks: batched rows and heatmaps equal the "
+                 "streaming ones")
+    del e32
+    torch.cuda.empty_cache()
+
+    bo_cfg = BOConfig()
+    fw = 1 + bo_cfg.n_iters   # forwards per BO loop: the pre-samples, then one per iteration
+    engine.fused_runners.clear()   # each flush runs eagerly or captures: every launch counted
+    bo = run("sweep_bo", lambda: sweep.bo_saliency_sweep(
+        engine, data, seg_cfg, bo_cfg, image_batch=SWEEP_BATCH, seed=SEED, keep_heatmaps=True),
+        flushes * SWEEP_BATCH * fw, flushes * (1 + fw) * 4)
+    same_best = []
+    for row in bo.per_image:
+        i = row["index"]
+        seg = segment_image(aggregate.normalize_to_uint8_np(data[i][0]), seg_cfg)
+        out, tr = bo_window_saliency(engine, data[i][0], seg, bo_cfg, seed=SEED + i,
+                                     target=row["target"])
+        same_best.append(row["best_start"] == int(tr.xp[np.argmax(tr.yp)])
+                         and np.array_equal(out.heatmap, bo.heatmaps[i]))
+    lines.append(f"BO rows (N={SWEEP_BATCH} flushes, bf16) equal to single-image "
+                 f"bo_window_saliency(seed=SEED+index) on {np.mean(same_best):.3f} of the images")
+    rise = run("sweep_attr_rise", lambda: sweep.attribution_sweep(
+        engine, data, method="rise", image_batch=SWEEP_BATCH, keep_heatmaps=True),
+        0, (flushes + n * 4) * 4)
+    grad = run("sweep_attr_gradient", lambda: sweep.attribution_sweep(
+        engine, data, method="gradient", image_batch=SWEEP_BATCH, keep_heatmaps=True),
+        0, flushes * 4)
+    del ko, ko_batch, rise, grad
+
+    # The CLI: its own ResNet-101 engine per lane, 4 synthetic images.
+    base = ["--synthetic", "--arch", "resnet101", "--num-images", "4"]
+    for path, extra, b1, b2 in (
+            ("sweep_cli_window", [], 4, 4 * 2 * 4),   # 100 masks: one chunk of 1024
+            ("sweep_cli_bo", ["--bo", "--image-batch", "4"], 4 * fw, 4 + 4 * fw),
+            ("sweep_cli_attr_rise", ["--attribute", "rise", "--image-batch", "4"], 0,
+             (1 + 4 * 2) * 4)):   # 500 RISE masks: two chunks of 250
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            counted(by_path, path, lambda: quiet(lambda: sweep_cli.main(
+                base + extra + ["--out", tmp])), b1, b2)
+            seconds = time.perf_counter() - t0
+            with open(f"{tmp}/sweep_result.json") as f:
+                payload = json.load(f)
+        if payload["images_explained"] != 4 or payload["images_failed"]:
+            raise AssertionError(f"{path}: payload {payload}")
+        lines.append(f"{path} {seconds:.2f} s with its engine build, "
+                     f"{payload['evals_per_sec']:.1f} evals/s, launches "
+                     + json.dumps(by_path[path]))
+    log(f"[sweep] {smi}: ResNet-101 224 bf16, {n} synthetic images, {NUM_SAMPLES} masks, "
+        f"mask_batch {MASK_BATCH}: " + "; ".join(lines))
 
 
 def knockout_phase(engine, image, segments, target, smi, by_path):
@@ -1104,10 +1399,14 @@ def b2_graph_phase(cases, smi):
     for batch, x, ws in cases:
         b2 = time_ms(graphed(lambda: bottleneck_chain(x, ws)).replay, 20)
         cudnn = time_ms(graphed(cudnn_chain(x, ws)).replay, 20)
-        per_batch[batch] = [v + d for v, d in zip(per_batch.get(batch, (0.0, 0.0)), (b2, cudnn))]
+        h, c = x.shape[1], x.shape[3]
+        flops, nbytes, _ = b2_costs(h, c, ws[0].shape[1], len(ws) // 6, batch)
+        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        per_batch[batch] = [v + d for v, d in zip(per_batch.get(batch, (0.0,) * 3),
+                                                  (b2, cudnn, bound))]
     log(f"[B2 graphs] {smi}: per ResNet-101 forward (4 chains) as CUDA graph replays: "
-        + "; ".join(f"B={b}: kernel {v[0]:.4f} ms, bf16 cuDNN {v[1]:.4f} ms"
-                    for b, v in per_batch.items()))
+        + "; ".join(f"B={b}: kernel {v[0]:.4f} ms, bf16 cuDNN {v[1]:.4f} ms, chain bound "
+                    f"{v[2]:.4f} ms" for b, v in per_batch.items()))
 
 
 def gp_cli_phase(by_path):
@@ -1703,13 +2002,16 @@ def main() -> int:
         f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
         + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms, "
                     f"yardstick bf16 cuDNN {v[2]:.4f} ms (eager)" for b, v in small.items()))
-    for h, c, p, n in (STAGES_101[0], STAGES_101[3]):
-        ws = b2_weights(rng, c, p, 2, torch.float32, dev)
-        x = torch.from_numpy(np.abs(rng.randn(4, h, h, c)).astype(np.float32)).to(dev)
+    f32_cases = [(4, (h, c, p, 2)) for h, c, p, _ in (STAGES_101[0], STAGES_101[3])]
+    f32_cases += [(batch, stage) for batch in B2_F32_BATCHES for stage in STAGES_101]
+    for batch, (h, c, p, n) in f32_cases:
+        ws = b2_weights(rng, c, p, n, torch.float32, dev)
+        x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)).to(dev)
         block_err, outside, chain_err = check_chain(x, ws, B2_F32_TOL)
-        log(f"[B2] f32 B=4 H={h} C={c} P={p} blocks=2: worst block err {block_err:.4g} "
-            f"(tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
+        log(f"[B2] f32 B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
+            f"{block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
             f"whole-chain err {chain_err:.4g}")
+        del x, ws
     torch.cuda.synchronize()
 
     # 5. the main path at full width
@@ -1830,6 +2132,7 @@ def main() -> int:
     cli_phase(paths)
     gen_phase(engine, smi, paths)
     resnet18_phase(normalized, seg_np, out.firsts, out.width, smi, paths)
+    resnext_phase(normalized, seg_np, out.firsts, out.width, smi, paths)
     knockout_phase(engine, normalized, seg_np, target, smi, paths)
     heats = multi_phase(engine, pool, pool_segs, pool_targets, rates[MASK_BATCH], smi, paths)
     gp_phase(out.heatmap, heats, smi)
@@ -1837,6 +2140,7 @@ def main() -> int:
     calibrated = attr_phase(normalized, display, smi, paths)
     attr_cli_phase(paths, calibrated)
     slic_phase(display, smi)
+    sweep_phase(engine, smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}

@@ -34,6 +34,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="use a deterministic synthetic image (no dataset needed)")
     g.add_argument("--eval_img_index", type=int, default=1,
                    help="index of the evaluation image, 1-based (reference flag)")
+    g.add_argument("--workers", "-j", type=int, default=4,
+                   help="decode/prefetch threads for real-data sweeps "
+                        "(reference DataLoader num_workers; 0 = serial)")
 
     g = p.add_argument_group("model")
     g.add_argument("--arch", "-a", default="resnet18", choices=ARCHS)
@@ -145,19 +148,21 @@ def segment_config(args) -> SegmentConfig:
 
 
 @functools.lru_cache(maxsize=4)
-def _dataset(data_dir: str):
+def _cached_dataset(data_dir: str, raw_u8: bool = False):
     """The dataset at ``data_dir``, parsed once per process (multi-image
-    runs read one image per index)."""
+    runs read one image per index): ImageNet localization where
+    ``LOC_val_solution.csv`` exists, else a class-subdirectory folder (the
+    reference's ImageFolder path, no gt boxes). ``raw_u8`` yields uint8
+    images for the sweep's uint8 wire."""
     if os.path.exists(os.path.join(data_dir, "LOC_val_solution.csv")):
         from network_interpretation_imagenet_tpu_torch.data.imagenet_loc import (
             ImagenetLocalizationDataset,
         )
 
-        return ImagenetLocalizationDataset(data_dir)
-    # Plain class-subdirectory layout (the reference's ImageFolder path): no gt boxes.
+        return ImagenetLocalizationDataset(data_dir, raw_u8=raw_u8)
     from network_interpretation_imagenet_tpu_torch.data.image_folder import ImageFolderDataset
 
-    return ImageFolderDataset(data_dir)
+    return ImageFolderDataset(data_dir, raw_u8=raw_u8)
 
 
 def resolve_image(args) -> Tuple[np.ndarray, np.ndarray, Optional[int], Optional[np.ndarray]]:
@@ -175,7 +180,7 @@ def resolve_image(args) -> Tuple[np.ndarray, np.ndarray, Optional[int], Optional
         label, gt = None, None
     else:
         # The reference counts images 1-based.
-        img, label, gt = _dataset(args.data)[max(args.eval_img_index - 1, 0)]
+        img, label, gt = _cached_dataset(args.data)[max(args.eval_img_index - 1, 0)]
     disp = preprocess.to_display_uint8(torch.from_numpy(img)).numpy()
     return img, disp, label, gt
 

@@ -9,12 +9,14 @@ _EXTS = (".jpeg", ".jpg", ".png", ".bmp", ".webp")
 
 
 class ImageFolderDataset:
-    """Yields (normalized f32 HWC image, label, None). Labels follow
-    torchvision: sorted subdirectory names -> 0..C-1, files sorted within
-    each class."""
+    """Yields (normalized f32 HWC image, label, None), or the resized and
+    cropped uint8 HWC image with ``raw_u8=True`` (the sweep's uint8 wire).
+    Labels follow torchvision: sorted subdirectory names -> 0..C-1, files
+    sorted within each class."""
 
-    def __init__(self, data_dir: str, crop: int = 224):
+    def __init__(self, data_dir: str, crop: int = 224, raw_u8: bool = False):
         self.crop = crop
+        self.raw_u8 = raw_u8
         classes = sorted(d for d in os.listdir(data_dir)
                          if os.path.isdir(os.path.join(data_dir, d)))
         self.class_to_label = {c: i for i, c in enumerate(classes)}
@@ -36,7 +38,7 @@ class ImageFolderDataset:
         path, label = self.items[index]
         with Image.open(path) as f:
             img = f.convert("RGB")
-        return pil_eval_transform(img, self.crop), label, None
+        return pil_eval_transform(img, self.crop, raw=self.raw_u8), label, None
 
     def __iter__(self):
         for i in range(len(self)):

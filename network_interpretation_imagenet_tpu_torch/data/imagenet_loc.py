@@ -58,11 +58,14 @@ def transform_gt_bbox(bbox_xywh: Sequence[float], img_w: float, img_h: float,
 
 class ImagenetLocalizationDataset:
     """Yields (normalized f32 HWC image, label, gt_bbox), like the
-    reference's loader."""
+    reference's loader. ``raw_u8=True`` yields the resized and cropped
+    uint8 HWC image instead: the sweep's uint8 wire normalizes it on the
+    device, and the upload is a quarter of the f32 bytes."""
 
-    def __init__(self, data_dir: str, crop: int = 224):
+    def __init__(self, data_dir: str, crop: int = 224, raw_u8: bool = False):
         self.data_dir = data_dir
         self.crop = crop
+        self.raw_u8 = raw_u8
         rows = parse_loc_csv(os.path.join(data_dir, "LOC_val_solution.csv"))
         synsets = sorted({synset for _, synset, _ in rows})
         self.synset_to_label = {s: i for i, s in enumerate(synsets)}
@@ -82,7 +85,7 @@ class ImagenetLocalizationDataset:
         with Image.open(path) as f:
             img = f.convert("RGB")
         img_w, img_h = img.size
-        out = pil_eval_transform(img, self.crop)
+        out = pil_eval_transform(img, self.crop, raw=self.raw_u8)
         return out, label, transform_gt_bbox(boxes[0], img_w, img_h, self.crop)
 
     def __iter__(self):

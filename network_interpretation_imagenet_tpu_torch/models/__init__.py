@@ -1,7 +1,7 @@
 """Model registry: ``create_model(arch, dataset, num_classes, dtype)``.
 
 Port of ``models/__init__.py`` of the JAX package for the ImageNet ResNets
-(18/34/50/101/152). The bundle carries the module (f32 parameters, torchvision keys)
+(18/34/50/101/152, ResNeXt-50 32x4d / 101 32x8d, Wide-ResNet-50-2 / 101-2). The bundle carries the module (f32 parameters, torchvision keys)
 and the compute dtype the engine defaults to; ``init(seed)`` makes a seeded
 random ``state_dict``.
 
@@ -64,7 +64,9 @@ class ModelBundle:
 
 def create_model(arch: str, dataset: str = "imagenet", num_classes: Optional[int] = None,
                  dtype: torch.dtype = torch.float32) -> ModelBundle:
-    """``resnet18`` / ``34`` / ``50`` / ``101`` / ``152`` for ``dataset``'s input size."""
+    """An arch of :data:`ARCHS` (``resnet18`` ... ``152``, ``resnext50_32x4d``,
+    ``resnext101_32x8d``, ``wide_resnet50_2``, ``wide_resnet101_2``) for
+    ``dataset``'s input size."""
     spec = DATASETS[dataset]
     nc = num_classes if num_classes is not None else spec.num_classes
     if arch not in ARCHS:

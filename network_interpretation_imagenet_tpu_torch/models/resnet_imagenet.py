@@ -1,15 +1,20 @@
-"""ImageNet ResNets: BasicBlock (ResNet-18/34) and Bottleneck (ResNet-50/101/152).
+"""ImageNet ResNets: BasicBlock (ResNet-18/34) and Bottleneck (ResNet-50/101/152,
+ResNeXt-50 32x4d / 101 32x8d, Wide-ResNet-50-2 / 101-2).
 
 Port of ``models/resnet_imagenet.py`` of the JAX package: torchvision's v1.5
 architecture (post-activation, stride on the 3x3) with torchvision's
-``state_dict`` key names. :class:`ResNet` holds the parameters and its
+``state_dict`` key names and its ``groups`` / ``width_per_group`` arguments.
+:class:`ResNet` holds the parameters and its
 ``forward`` is the plain eval-mode network. :class:`FoldedResNet` is the
 inference plan the engine runs: BatchNorm folded into every convolution once
 when it is built, activations kept NHWC in memory (channels_last). In a
 Bottleneck net the stem and the first (projection) block of each stage are
 plain torch ops, and each stage's remaining stride-1 identity blocks are one
-``bottleneck_chain`` call. A BasicBlock net has no bottleneck, and no TPU
-kernel covers its blocks either: all of them are plain torch ops (cuDNN).
+``bottleneck_chain`` call (a Wide-ResNet's too: its chains have P = 2*planes
+and C = 2*P). A BasicBlock net has no bottleneck, and no TPU kernel covers
+its blocks either: all of them are plain torch ops (cuDNN). Neither does a
+ResNeXt net's grouped 3x3 fit B2's dense GEMM (nor the TPU kernel's), so
+all of its blocks are plain torch ops too, the 3x3 a grouped convolution.
 """
 
 from __future__ import annotations
@@ -56,14 +61,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False) -> None:
+                 downsample: bool = False, groups: int = 1, base_width: int = 64) -> None:
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        # torchvision: width = planes * base_width / 64 * groups
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(out)
         self.downsample = (
             nn.Sequential(nn.Conv2d(inplanes, out, 1, stride, bias=False),
@@ -81,12 +88,14 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """torchvision-compatible ResNet over ``block`` (:class:`BasicBlock` or
-    :class:`Bottleneck`); ``forward`` takes NHWC."""
+    :class:`Bottleneck`, the latter with ``groups`` and ``base_width``);
+    ``forward`` takes NHWC."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
-                 block: type = Bottleneck) -> None:
+                 block: type = Bottleneck, groups: int = 1, base_width: int = 64) -> None:
         super().__init__()
         self.stage_sizes = tuple(int(n) for n in stage_sizes)
+        bkw = dict(groups=groups, base_width=base_width) if block is Bottleneck else {}
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         inplanes = 64
@@ -96,7 +105,7 @@ class ResNet(nn.Module):
             for b in range(num_blocks):
                 stride = 2 if stage > 0 and b == 0 else 1
                 ds = stride != 1 or inplanes != planes * block.expansion
-                blocks.append(block(inplanes, planes, stride, ds))
+                blocks.append(block(inplanes, planes, stride, ds, **bkw))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(inplanes, num_classes)
@@ -131,15 +140,27 @@ class ResNet(nn.Module):
         return sd
 
 
-# Stage sizes of the Bottleneck nets (whose stages B2 runs) and of the BasicBlock nets.
+# Stage sizes of the Bottleneck nets (whose dense stages B2 runs) and of the BasicBlock nets.
 _CONFIGS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
+    # grouped / wide variants (torchvision resnet.py factory arguments)
+    "resnext50_32x4d": (3, 4, 6, 3),
+    "resnext101_32x8d": (3, 4, 23, 3),
+    "wide_resnet50_2": (3, 4, 6, 3),
+    "wide_resnet101_2": (3, 4, 23, 3),
 }
 _BASIC_CONFIGS = {
     "resnet18": (2, 2, 2, 2),
     "resnet34": (3, 4, 6, 3),
+}
+# (groups, base_width) per arch; default (1, 64).
+_GROUPS = {
+    "resnext50_32x4d": (32, 4),
+    "resnext101_32x8d": (32, 8),
+    "wide_resnet50_2": (1, 128),
+    "wide_resnet101_2": (1, 128),
 }
 ARCHS = tuple(_BASIC_CONFIGS) + tuple(_CONFIGS)
 
@@ -147,7 +168,8 @@ ARCHS = tuple(_BASIC_CONFIGS) + tuple(_CONFIGS)
 def create_resnet(arch: str, num_classes: int = 1000) -> ResNet:
     if arch in _BASIC_CONFIGS:
         return ResNet(_BASIC_CONFIGS[arch], num_classes=num_classes, block=BasicBlock)
-    return ResNet(_CONFIGS[arch], num_classes=num_classes)
+    groups, base_width = _GROUPS.get(arch, (1, 64))
+    return ResNet(_CONFIGS[arch], num_classes=num_classes, groups=groups, base_width=base_width)
 
 
 def _array(t) -> np.ndarray:
@@ -158,7 +180,9 @@ class FoldedResNet:
     """The inference plan of a ResNet, built once from a ``state_dict``:
     BatchNorm folded (``fold_bn``) and every weight cast to ``dtype`` on
     ``device``. The block type follows the keys: a net without ``conv3`` is a
-    BasicBlock net. Calling it maps NHWC ``dtype`` images to f32 logits;
+    BasicBlock net, and one whose 3x3 weight has fewer input channels than
+    output channels is grouped (ResNeXt); both run every block as torch ops.
+    Calling it maps NHWC ``dtype`` images to f32 logits;
     ``plain=True`` runs the chains through their plain version (the
     comparison the card makes)."""
 
@@ -175,8 +199,10 @@ class FoldedResNet:
         def torch_conv(conv: str, bn: str, stride: int, padding: int):
             w, b = folded(conv, bn)
             w = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1))))
+            # A block's 3x3 keeps its width, so its OIHW weight is [w, w / groups].
+            groups = int(w.shape[0]) // int(w.shape[1]) if conv.endswith("conv2") else 1
             return (w.to(self.device, dtype).contiguous(memory_format=torch.channels_last),
-                    torch.from_numpy(b).to(self.device, dtype), stride, padding)
+                    torch.from_numpy(b).to(self.device, dtype), stride, padding, groups)
 
         def matrix(w: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(w)).to(self.device, dtype)
@@ -185,6 +211,8 @@ class FoldedResNet:
             return torch.from_numpy(b).to(self.device, torch.float32)
 
         basic = "layer1.0.conv3.weight" not in state_dict
+        first_3x3 = state_dict["layer1.0.conv2.weight"].shape
+        grouped = not basic and int(first_3x3[1]) != int(first_3x3[0])
 
         def torch_block(p: str, stride: int):
             """(convs, downsample) of block ``p``, run as torch ops."""
@@ -200,12 +228,13 @@ class FoldedResNet:
             return convs, ds
 
         self.stem = torch_conv("conv1", "bn1", 2, 3)
-        # Per stage: the blocks run as torch ops (all of a BasicBlock net's,
-        # the first of a Bottleneck net's), then the B2 chain of the rest.
+        # Per stage: the blocks run as torch ops (all of a BasicBlock or a
+        # ResNeXt net's, the first of a dense Bottleneck net's), then the B2
+        # chain of the rest.
         self.stages = []
         for s, num_blocks in enumerate(stage_sizes, start=1):
             stride = 1 if s == 1 else 2
-            n_torch = num_blocks if basic else 1
+            n_torch = num_blocks if basic or grouped else 1
             blocks = [torch_block(f"layer{s}.{b}", stride if b == 0 else 1)
                       for b in range(n_torch)]
             chain = []
@@ -222,8 +251,8 @@ class FoldedResNet:
 
     @staticmethod
     def _conv(x, op, relu: bool):
-        w, b, stride, padding = op
-        y = F.conv2d(x, w, b, stride, padding)
+        w, b, stride, padding, groups = op
+        y = F.conv2d(x, w, b, stride, padding, groups=groups)
         return torch.relu(y) if relu else y
 
     def __call__(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:

@@ -174,20 +174,23 @@ def bo_window_saliency_multi_async(
     """Enqueue :func:`bo_window_saliency_multi`'s fused program and return a
     ``collect()`` closure that waits for it (one device-to-host copy).
 
-    The N active-learning loops run as one program on N same-shape host
-    images: every iteration's forward batches N·q masked images. ``collect()``
-    returns N (SaliencyOutput, BOResult) pairs. With ``per_image_seeds``
-    (int[N]) image j's trace equals a :func:`bo_window_saliency` call with
-    seed ``per_image_seeds[j]`` (up to the rounding of a forward at another
-    batch size); see :func:`_multi_draws` for the draws without it. The
-    image axis is not padded: the runner captures one graph per image count
-    and shape."""
+    The N active-learning loops run as one program on N same-shape images
+    (host arrays, or an f32 [N, H, W, C] tensor on the engine's device):
+    every iteration's forward batches N·q masked images. ``targets`` may be
+    host ints or a device tensor (the sweep's deferred predict), read by the
+    host only in ``collect()``, which returns N (SaliencyOutput, BOResult)
+    pairs. With ``per_image_seeds`` (int[N]) image j's trace equals a
+    :func:`bo_window_saliency` call with seed ``per_image_seeds[j]`` (up to
+    the rounding of a forward at another batch size); see
+    :func:`_multi_draws` for the draws without it. The image axis is not
+    padded: the runner captures one graph per image count and shape."""
     segs, ss, widths, uppers = _multi_geometry(segments_list, window_fraction)
     n = len(segs)
-    images = np.asarray(np.stack(images), np.float32)
+    if not isinstance(images, torch.Tensor):
+        images = np.asarray(np.stack(images), np.float32)
     if targets is None:
         targets = np.asarray(engine.predict(images).argmax(axis=1), np.int64)
-    else:
+    elif not isinstance(targets, torch.Tensor):
         targets = np.asarray(targets, np.int64)
     run = fused_runner(engine, next_pow2(int(uppers.max()) + 1), cfg, int(proposals_per_iter),
                        batch_images=True)
@@ -195,8 +198,9 @@ def bo_window_saliency_multi_async(
     xs_d, ys_d, survived_d, count = run(images, np.stack(segs), widths, targets, uppers, draws)
 
     def collect():
+        host_targets = targets.cpu().numpy() if isinstance(targets, torch.Tensor) else targets
         return _collect_multi_outputs(xs_d, ys_d, survived_d, count, segs, ss, widths,
-                                      targets, n)
+                                      host_targets, n)
 
     return collect
 

@@ -128,16 +128,19 @@ class SaliencyEngine:
             self.eval_window_masks_async(image, segments, firsts, width, target))
 
     @torch.inference_mode()
-    def eval_window_masks_async(self, image, segments, firsts, width: int, target: int):
-        """Enqueue K window-mask evaluations; returns a handle for :meth:`collect`."""
+    def eval_window_masks_async(self, image, segments, firsts, width: int, target):
+        """Enqueue K window-mask evaluations; returns a handle for :meth:`collect`.
+        ``target`` is an int or a device tensor of one target (the argmax of
+        :meth:`predict_logits_device`, never read by the host)."""
         image_t = self._to_device(image, np.float32)
         seg_t = self._to_device(segments, np.int32)
         firsts_t = self._to_device(firsts, np.int32)
+        target = self._targets(target) if isinstance(target, torch.Tensor) else int(target)
         outs: List[torch.Tensor] = []
         for off in range(0, firsts_t.shape[0], self.mask_batch):
             imgs = masked_batch(image_t, seg_t, firsts_t[off:off + self.mask_batch],
                                 int(width), self.compute_dtype)
-            outs.append(outcomes(self.model(imgs), int(target)))
+            outs.append(outcomes(self.model(imgs), target))
         return outs
 
     @torch.inference_mode()
@@ -164,13 +167,14 @@ class SaliencyEngine:
         ceil(K / mask_batch) forwards."""
         return self.collect(self.eval_knockout_masks_async(image, segments, knock_ids, target))
 
-    def eval_knockout_masks_async(self, image, segments, knock_ids, target: int):
+    def eval_knockout_masks_async(self, image, segments, knock_ids, target):
         """Enqueue K knockout-mask evaluations (int32[K, M] or [K] ids);
         returns a handle for :meth:`collect`. This is the multi-image grid
-        with N = 1."""
+        with N = 1; ``target`` is an int or a device tensor of one target."""
         ids = np.asarray(knock_ids, np.int32)
+        targets = target.reshape(1) if isinstance(target, torch.Tensor) else [target]
         return self.eval_knockout_masks_multi_async(
-            image[None], segments[None], ids.reshape(1, ids.shape[0], -1), [target])[0]
+            image[None], segments[None], ids.reshape(1, ids.shape[0], -1), targets)[0]
 
     def _targets(self, targets) -> torch.Tensor:
         """int64[N] targets on the device, from host values or a device tensor

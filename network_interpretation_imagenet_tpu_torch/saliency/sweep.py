@@ -1,0 +1,909 @@
+"""Val-set saliency sweep: many images through one engine (port of
+``saliency/sweep.py``, without its device mesh).
+
+Every ported explanation runs over a dataset here: random windows and
+knockouts (:func:`saliency_sweep`), the fused GP-EI BO loop
+(:func:`bo_saliency_sweep`) and the attribution family
+(:func:`attribution_sweep`), with per-image rows (IOU, survival, fidelity),
+skipped misclassified images and failures counted, not fatal, and a
+crash-safe journal (``saliency.journal``).
+
+The host and the card overlap. CUDA launches return before the card has
+run them, so a sweep dispatches image i's masked forwards, segments image
+i+1 on the host while they run, and reads image i's outcomes (the one
+device-to-host copy that waits) only after dispatching image i+1. The
+window masks of every chunk are built by B1 and every masked forward runs
+the engine's folded net, whose stride-1 Bottleneck stages are B2 chains.
+
+The reference aborts the whole run on the first misclassified image
+(``bayesian_active_learning_imagenet.py:221``); the sweep skips and records
+it. The JAX package's mesh lanes (``_sharded_*_saliency`` and the sharded
+flush) are not here; they come with multi-GPU work.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
+from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
+from network_interpretation_imagenet_tpu_torch.ops.preprocess import normalize as _normalize
+from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+from network_interpretation_imagenet_tpu_torch.saliency.pipeline import localization_score
+from network_interpretation_imagenet_tpu_torch.segment.common import (
+    segment_image,
+    segment_image_batch,
+    slic_batch_device,
+    slic_postpass_host,
+)
+from network_interpretation_imagenet_tpu_torch.utils.logging import PhaseLogger
+from network_interpretation_imagenet_tpu_torch.utils.meters import AverageMeter
+
+
+@dataclasses.dataclass
+class SweepResult:
+    images_total: int = 0
+    images_explained: int = 0
+    images_skipped_misclassified: int = 0
+    images_failed: int = 0
+    mean_iou: float = 0.0
+    mean_survival: float = 0.0
+    # Per-image "seconds" rows (and this pooled p50) span enqueue to
+    # finalize through the pipeline, overlap with other images' work
+    # included: an upper bound on one image's latency. Throughput
+    # (`evals_per_sec`) is the sweep's primary metric.
+    p50_latency_s: float = 0.0
+    evals_per_sec: float = 0.0
+    # From the per-image rows when the sweep runs with fidelity_steps > 0:
+    # good saliency has a low deletion AUC, a high insertion AUC and a high
+    # pointing-game accuracy.
+    mean_deletion_auc: float = 0.0
+    mean_insertion_auc: float = 0.0
+    pointing_game_acc: float = 0.0
+    per_image: list = dataclasses.field(default_factory=list)
+    # index -> f32[H, W] heatmap; filled only with keep_heatmaps=True (for
+    # the GP-surrogate passes).
+    heatmaps: dict = dataclasses.field(default_factory=dict)
+
+
+def _host(t) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _display(image: np.ndarray) -> np.ndarray:
+    """The uint8 display image Felzenszwalb segments (2-D for one channel)."""
+    disp = aggregate.normalize_to_uint8_np(image)
+    return disp[:, :, 0] if disp.ndim == 3 and disp.shape[2] == 1 else disp
+
+
+def _display_batch(images: torch.Tensor) -> torch.Tensor:
+    """:func:`_display` of a device batch [N, H, W, C], on the device."""
+    disp = aggregate.normalize_to_uint8_batch(images)
+    return disp[..., 0] if disp.dim() == 4 and disp.shape[-1] == 1 else disp
+
+
+def _fidelity_row_fields(engine, image, heat, target: int, gt_bbox, steps: int) -> dict:
+    """Per-image faithfulness fields: one batched forward of both curves
+    through the engine's folded net (B2 on the card), and the pointing game
+    where a gt box exists."""
+    from network_interpretation_imagenet_tpu_torch.saliency import eval_metrics
+
+    d = eval_metrics.deletion_insertion_auc(engine, image, heat, int(target), steps=steps)
+    fields = {"deletion_auc": round(d["deletion_auc"], 6),
+              "insertion_auc": round(d["insertion_auc"], 6)}
+    if gt_bbox is not None:
+        fields["pointing"] = bool(eval_metrics.pointing_game(heat, gt_bbox))
+    return fields
+
+
+def _finalize_fidelity_means(res: SweepResult) -> None:
+    """Fidelity means from the per-image rows (the rows are the source, so
+    journal-restored results aggregate the same way)."""
+    dels = [r["deletion_auc"] for r in res.per_image if "deletion_auc" in r]
+    inss = [r["insertion_auc"] for r in res.per_image if "insertion_auc" in r]
+    pts = [r["pointing"] for r in res.per_image if "pointing" in r]
+    res.mean_deletion_auc = float(np.mean(dels)) if dels else 0.0
+    res.mean_insertion_auc = float(np.mean(inss)) if inss else 0.0
+    res.pointing_game_acc = float(np.mean(pts)) if pts else 0.0
+
+
+def _unpack_item(item):
+    """(image, label?, gt_bbox?) from a 2- or 3-element dataset item. Any
+    sequence type; a malformed item raises inside the caller's per-image
+    try block instead of aborting the sweep."""
+    seq = tuple(item)
+    if len(seq) == 2:
+        return seq[0], seq[1], None
+    return seq[0], seq[1], seq[2]
+
+
+def _sweep_scaffold(journal, logger, keep_heatmaps):
+    """(res, iou_m, surv_m, latencies, done, log) with journaled work
+    restored: the common preamble of every sweep."""
+    log = logger or PhaseLogger(enabled=False)
+    res = SweepResult()
+    iou_m, surv_m = AverageMeter(), AverageMeter()
+    latencies = []
+    done = ()
+    if journal is not None:
+        from network_interpretation_imagenet_tpu_torch.saliency.journal import JournalingLogger
+
+        journal.restore_into(res, iou_m, surv_m, latencies, keep_heatmaps)
+        done = journal.done
+        log = JournalingLogger(log, journal)
+    return res, iou_m, surv_m, latencies, done, log
+
+
+def _finish_sweep(res, iou_m, surv_m, latencies, total_evals, wall):
+    res.mean_iou = iou_m.avg
+    res.mean_survival = surv_m.avg
+    res.p50_latency_s = float(np.median(latencies)) if latencies else 0.0
+    res.evals_per_sec = total_evals / wall if wall > 0 else 0.0
+    _finalize_fidelity_means(res)
+    return res
+
+
+def saliency_sweep(
+    engine: SaliencyEngine,
+    dataset: Iterable,
+    seg_cfg: SegmentConfig,
+    num_mask_samples: int = 100,
+    window_fraction: float = 0.4,
+    bbox_threshold: int = 180,
+    max_images: Optional[int] = None,
+    seed: int = 0,
+    logger: Optional[PhaseLogger] = None,
+    image_batch: int = 1,
+    keep_heatmaps: bool = False,
+    dataset_indices=None,
+    mode: str = "window",
+    num_knockout: int = 1,
+    journal=None,
+    fidelity_steps: int = 0,
+) -> SweepResult:
+    """Sweep (image, label, gt_bbox?) items; returns aggregate metrics.
+
+    ``dataset`` yields ``(normalized f32 HWC image, int label | None,
+    gt_bbox | None)``. Each image's masks are sampled on the host from
+    numpy's ``RandomState(seed + index)`` (the JAX package's stream), so a
+    row depends only on its image and index. ``mode="knockout"`` swaps the
+    windows for the reference's MNIST/CIFAR knockouts: each of the K masks
+    zeros ``num_knockout`` random segments.
+
+    ``image_batch`` <= 1 streams: each image is segmented on the host, its
+    prediction, targets and masked forwards dispatched with the target left
+    on the device, and its outcomes collected one image behind, where the
+    misclassification skip is decided (a misclassified image wastes its
+    masked forwards; the device queue never drains). ``image_batch`` > 1
+    (same-shape images) flushes that many images at once: one upload, one
+    batched segmentation (SLIC on the device), one batched prediction and
+    one multi-image mask grid (``eval_{window,knockout}_masks_multi_async``,
+    B1 once per image run of a chunk), collected one flush behind.
+
+    ``dataset_indices`` maps enumerate position -> dataset index (seeds,
+    rows). ``journal`` (a ``SweepJournal``) appends each image's terminal
+    outcome and, built with ``resume=True``, restores finished images and
+    skips them: a resumed sweep's rows equal an uninterrupted run's.
+    ``evals_per_sec`` counts only this run's work. ``fidelity_steps`` > 0
+    scores every explained heatmap (deletion/insertion AUC, pointing game).
+    """
+    if mode not in ("window", "knockout"):
+        raise ValueError(f"unknown sweep mode {mode!r}")
+    is_knockout = mode == "knockout"
+
+    def sample_plan(seed_i: int, s: int) -> dict:
+        """Per-image mask parameters, sampled on the host (both families),
+        so dispatch never waits for the device."""
+        if is_knockout:
+            return {"ids": masking.sample_knockout_ids_host(seed_i, num_mask_samples,
+                                                            num_knockout, s)}
+        width = int(window_fraction * s)
+        return {"firsts": masking.sample_window_starts_host(seed_i, num_mask_samples, s, width),
+                "width": width}
+
+    def aggregate_plan(seg, plan: dict, survived) -> np.ndarray:
+        if is_knockout:
+            return aggregate.summed_knockout_labels_np(seg, plan["ids"], survived)
+        return aggregate.summed_superpixel_labels_np(seg, plan["firsts"], plan["width"],
+                                                     survived)
+
+    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
+    total_evals = 0
+    t_start = time.perf_counter()
+    gt_by_index = {}
+
+    def finish_image(i, target, s, heat, survived, t0, image):
+        nonlocal total_evals
+        total_evals += num_mask_samples
+        row = {"index": i, "target": target, "num_segments": s,
+               "survival": float(np.mean(survived))}
+        surv_m.update(row["survival"])
+        gt_bbox = gt_by_index.get(i)
+        if gt_bbox is not None:
+            iou, _ = localization_score(heat, gt_bbox, bbox_threshold)
+            row["iou"] = float(iou)
+            iou_m.update(float(iou))
+        if fidelity_steps > 0:
+            row.update(_fidelity_row_fields(engine, image, heat, target, gt_bbox,
+                                            fidelity_steps))
+        res.images_explained += 1
+        if keep_heatmaps:
+            res.heatmaps[i] = np.asarray(heat)
+        if journal is not None and keep_heatmaps:
+            journal.save_heatmap(i, heat)  # before the row marks it done
+        latencies.append(time.perf_counter() - t0)
+        row["seconds"] = round(latencies[-1], 4)
+        res.per_image.append(row)
+        log.emit({"event": "image_done", **row})
+
+    def skip(i, pred, label) -> bool:
+        if label is None or pred == int(label):
+            return False
+        res.images_skipped_misclassified += 1
+        log.emit({"event": "skip_misclassified", "index": i, "pred": pred, "label": int(label)})
+        return True
+
+    pending = []                    # batched path: (i, image, display, label, t0)
+    inflight = collections.deque()  # streaming path: dispatched, not collected
+    inflight_batch = None           # batched path: one dispatched flush
+
+    def collect_one():
+        """Fetch the oldest in-flight image's outcomes and finalize it; the
+        misclassification skip is decided here, from logits that are long
+        computed."""
+        fl = inflight.popleft()
+        try:
+            r = engine.collect(fl["handle"])
+            pred = int(_host(fl["logits"])[0].argmax())
+            if skip(fl["i"], pred, fl["label"]):
+                return
+            heat = aggregate_plan(fl["seg"], fl["plan"], r.survived)
+            finish_image(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
+        except Exception as e:
+            res.images_failed += 1
+            log.emit({"event": "image_failed", "index": fl["i"], "error": repr(e)})
+
+    def collect_batch():
+        """Finalize the in-flight flush. A failure to fetch fails the whole
+        flush; a failure in one image's rows fails that image only."""
+        nonlocal inflight_batch
+        if inflight_batch is None:
+            return
+        fb, inflight_batch = inflight_batch, None
+        try:
+            preds = _host(fb["logits"]).argmax(axis=1)
+            results = engine.collect_multi(fb["handle"], fb["n"], fb["k"])
+        except Exception as e:
+            res.images_failed += len(fb["metas"])
+            log.emit({"event": "batch_failed", "indices": [m[0] for m in fb["metas"]],
+                      "error": repr(e)})
+            return
+        for j, (i, seg, s, plan, label, t0, img) in enumerate(fb["metas"]):
+            try:
+                pred = int(preds[j])
+                if skip(i, pred, label):
+                    continue
+                surv = results[j].survived
+                finish_image(i, pred, s, aggregate_plan(seg, plan, surv), surv, t0, img)
+            except Exception as e:
+                res.images_failed += 1
+                log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+
+    def flush_pending():
+        """Dispatch the pending images (one upload, one batched predict with
+        the targets left on the device, one multi-image mask grid), then
+        collect the previous flush while this one runs."""
+        nonlocal inflight_batch
+        if not pending:
+            collect_batch()
+            return
+        batch = list(pending)
+        pending.clear()
+        try:
+            idxs, imgs, disps, labels, t0s = zip(*batch)
+            imgs_dev = torch.from_numpy(np.stack(imgs).astype(np.float32)).to(engine.device)
+            with log.phase("segment_batch", count=len(batch)):
+                seg_in = _display_batch(imgs_dev) if seg_cfg.method == "slic" else disps
+                segs = [np.asarray(s, np.int32)
+                        for s in segment_image_batch(seg_in, seg_cfg, engine.device)]
+            ss = [int(s.max()) + 1 for s in segs]
+            plans = [sample_plan(seed + idxs[j], ss[j]) for j in range(len(batch))]
+            logits_dev = engine.predict_logits_device(imgs_dev)
+            targets_dev = torch.argmax(logits_dev, dim=1)
+            if is_knockout:
+                handle, n, k = engine.eval_knockout_masks_multi_async(
+                    imgs_dev, np.stack(segs), np.stack([p["ids"] for p in plans]), targets_dev)
+            else:
+                handle, n, k = engine.eval_window_masks_multi_async(
+                    imgs_dev, np.stack(segs), np.stack([p["firsts"] for p in plans]),
+                    np.asarray([p["width"] for p in plans], np.int32), targets_dev)
+            fb = {"handle": handle, "n": n, "k": k, "logits": logits_dev,
+                  "metas": list(zip(idxs, segs, ss, plans, labels, t0s, imgs))}
+            collect_batch()  # the previous flush drains while this one computes
+            inflight_batch = fb
+        except Exception as e:
+            res.images_failed += len(batch)
+            log.emit({"event": "batch_failed", "indices": [b[0] for b in batch],
+                      "error": repr(e)})
+
+    for pos, item in enumerate(dataset):
+        if max_images is not None and pos >= max_images:
+            break
+        i = int(dataset_indices[pos]) if dataset_indices is not None else pos
+        if i in done:  # a terminal outcome journaled by an earlier run
+            continue
+        res.images_total += 1
+        t0 = time.perf_counter()
+        try:
+            image, label, gt_bbox = _unpack_item(item)
+            image = np.asarray(image)
+            gt_by_index[i] = gt_bbox
+            # Host segmentation runs first, so it overlaps the card running
+            # the in-flight image. A SLIC flush derives its displays on the
+            # device from the flush's one upload.
+            disp = None if image_batch > 1 and seg_cfg.method == "slic" else _display(image)
+            if image_batch > 1:
+                pending.append((i, image, disp, label, t0))
+                if len(pending) >= image_batch:
+                    flush_pending()
+                continue
+            with log.phase("segment", index=i):
+                seg = np.asarray(segment_image(disp, seg_cfg, engine.device), np.int32)
+            s = int(seg.max()) + 1
+            plan = sample_plan(seed + i, s)
+            # Prediction, argmax (a device scalar, so the masked forwards
+            # need no fetch) and masked forwards are all enqueued; the image
+            # is collected one behind.
+            logits_dev = engine.predict_logits_device(image[None])
+            target_dev = torch.argmax(logits_dev[0])
+            if is_knockout:
+                handle = engine.eval_knockout_masks_async(image, seg, plan["ids"], target_dev)
+            else:
+                handle = engine.eval_window_masks_async(image, seg, plan["firsts"],
+                                                        plan["width"], target_dev)
+            inflight.append({"i": i, "label": label, "logits": logits_dev, "seg": seg, "s": s,
+                             "plan": plan, "handle": handle, "t0": t0, "image": image})
+            while len(inflight) > 1:
+                collect_one()
+        except Exception as e:  # per-image failure isolation
+            res.images_failed += 1
+            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+
+    while inflight:
+        collect_one()
+    flush_pending()  # dispatch the tail flush and drain the previous one
+    collect_batch()
+    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
+                         time.perf_counter() - t_start)
+
+
+def _u8_normalize_device(u8: torch.Tensor, normalize) -> torch.Tensor:
+    """Device half of the uint8 wire: /255 then ``(x - mean) / std``, all f32
+    on the device; the upload carries raw bytes (a quarter of f32's)."""
+    mean, std = normalize
+    return _normalize(u8.to(torch.float32) / 255.0, mean, std)
+
+
+def _u8_normalize_host(u8: np.ndarray, normalize) -> np.ndarray:
+    """Host twin of :func:`_u8_normalize_device` (the same f32 operations in
+    the same order), for the per-image host consumers (fidelity forwards)."""
+    mean, std = normalize
+    x = u8.astype(np.float32) / np.float32(255.0)
+    return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+def _quantize_heats_device(heats: torch.Tensor):
+    """Device half of ``heatmap_wire="u8"``: per-image min-max quantization
+    of f32 [N, H, W] heatmaps to (u8 q, f32 lo, f32 span); the host
+    reconstructs ``lo + q * span / 255``. Bbox and IOU stay exact
+    (localization min-max-normalizes to uint8 anyway, and the map is
+    monotonic); fidelity ranks coarsen to 256 levels."""
+    flat = heats.reshape(heats.shape[0], -1)
+    lo = flat.min(dim=1).values
+    span = torch.clamp(flat.max(dim=1).values - lo, min=torch.finfo(torch.float32).tiny)
+    q = torch.round((heats - lo[:, None, None]) / span[:, None, None] * 255.0)
+    return q.to(torch.uint8), lo, span
+
+
+def _batched_flush_sweep(
+    engine: SaliencyEngine,
+    dataset: Iterable,
+    *,
+    image_batch: int,
+    max_images: Optional[int],
+    log,
+    res: SweepResult,
+    iou_m: AverageMeter,
+    surv_m: AverageMeter,
+    latencies: list,
+    done,
+    journal,
+    keep_heatmaps: bool,
+    dataset_indices,
+    bbox_threshold: int,
+    fidelity_steps: int,
+    evals_per_image,
+    enqueue_display,
+    dispatch,
+    collect,
+    normalize=None,
+    prepare=None,
+) -> int:
+    """Shared driver of the image-batched sweeps (fused BO and attribution):
+    a staged flush pipeline (upload and prepare flush k, dispatch flush k-1,
+    finalize flush k-2), a batched predict with the misclassification skip
+    before dispatch, and per-image IOU, fidelity, heatmap and journal rows.
+
+    The per-flush compute comes as hooks:
+
+    * ``enqueue_display(image) -> disp | None``: enqueue-time host work;
+    * ``prepare(imgs_dev, disps, keep) -> prep`` (optional): device work
+      issued as soon as a flush is uploaded, without waiting for it;
+    * ``dispatch(imgs_dev, disps, keep, idxs, preds, prep) -> state``: enqueue
+      the flush's program over the kept images; raising fails them;
+    * ``collect(state) -> [(heatmap, extra_row_fields)]`` aligned with
+      ``keep``; a ``"survival"`` field feeds the survival meter.
+
+    Returns the eval count (``evals_per_image`` per finalized kept image, or
+    a callable of the image shape).
+
+    ``normalize=(mean, std)`` enables the uint8 wire: the dataset yields raw
+    uint8 HWC images, uploaded at a quarter of the f32 bytes and normalized
+    on the device. A flush that mixes uint8 and float images raises, as
+    does uint8 without ``normalize``.
+    """
+    total_evals = 0
+    pending = []   # (i, image, display, label, gt, t0)
+    inflight = []  # at most one dispatched flush, finalized behind the next
+    staged = []    # at most one uploaded and prepared flush, not yet dispatched
+
+    def finalize():
+        nonlocal total_evals
+        state, keep, idxs, preds, gts, t0s, imgs = inflight.pop(0)
+        try:
+            preds = _host(preds)  # a device tensor on the deferred-predict path
+            results = collect(state)
+        except Exception as e:
+            failed = [idxs[j] for j in keep]
+            res.images_failed += len(failed)
+            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            return
+        for pos, j in enumerate(keep):
+            try:
+                total_evals += (evals_per_image(imgs[j].shape) if callable(evals_per_image)
+                                else evals_per_image)
+                heat, extra = results[pos]
+                heat = np.asarray(heat)
+                row = {"index": idxs[j], "target": int(preds[j]), **extra}
+                if "survival" in extra:
+                    surv_m.update(float(extra["survival"]))
+                if gts[j] is not None:
+                    iou, _ = localization_score(heat, gts[j], bbox_threshold)
+                    row["iou"] = float(iou)
+                    iou_m.update(float(iou))
+                if fidelity_steps > 0:
+                    img_j = imgs[j]
+                    if img_j.dtype == np.uint8:
+                        img_j = _u8_normalize_host(img_j, normalize)
+                    row.update(_fidelity_row_fields(engine, img_j, heat, int(preds[j]), gts[j],
+                                                    fidelity_steps))
+                res.images_explained += 1
+                if keep_heatmaps:
+                    res.heatmaps[idxs[j]] = heat
+                if journal is not None and keep_heatmaps:
+                    journal.save_heatmap(idxs[j], heat)
+                latencies.append(time.perf_counter() - t0s[j])
+                row["seconds"] = round(latencies[-1], 4)
+                res.per_image.append(row)
+                log.emit({"event": "image_done", **row})
+            except Exception as e:
+                res.images_failed += 1
+                log.emit({"event": "image_failed", "index": idxs[j], "error": repr(e)})
+
+    def dispatch_staged():
+        imgs_dev, disps, keep, idxs, preds, gts, t0s, imgs, prep = staged.pop(0)
+        try:
+            state = dispatch(imgs_dev, disps, keep, idxs, preds, prep)
+        except Exception as e:
+            failed = [idxs[j] for j in keep]
+            res.images_failed += len(failed)
+            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            return
+        inflight.append((state, keep, idxs, preds, gts, t0s, imgs))
+        while len(inflight) > 1:  # finalize the previous flush behind this one
+            finalize()
+
+    def flush():
+        if not pending:
+            return
+        batch = list(pending)
+        pending.clear()
+        keep = None  # None until the skip decision lands (the predict can fail)
+        try:
+            idxs, imgs, disps, labels, gts, t0s = zip(*batch)
+            dtypes = {im.dtype for im in imgs}
+            if np.dtype(np.uint8) in dtypes and len(dtypes) > 1:
+                # np.stack would promote the uint8 images to float raw pixels
+                # and skip their normalization.
+                raise ValueError(f"flush mixes uint8 and float images ({dtypes}); the "
+                                 "uint8 wire needs a homogeneous dataset")
+            arr = np.stack(imgs)
+            if arr.dtype == np.uint8:
+                imgs_dev = _u8_normalize_device(torch.from_numpy(arr).to(engine.device),
+                                                normalize)
+            else:
+                imgs_dev = torch.from_numpy(arr.astype(np.float32)).to(engine.device)
+            if all(lab is None for lab in labels):
+                # No skip decision to make: the targets stay on the device
+                # and finalize() fetches them once the program is done.
+                preds = torch.argmax(engine.predict_logits_device(imgs_dev), dim=1)
+                keep = list(range(len(batch)))
+            else:
+                preds = engine.predict(imgs_dev).argmax(axis=1)
+                keep = [j for j in range(len(batch))
+                        if labels[j] is None or int(preds[j]) == int(labels[j])]
+                for j in range(len(batch)):
+                    if j not in keep:
+                        res.images_skipped_misclassified += 1
+                        log.emit({"event": "skip_misclassified", "index": idxs[j],
+                                  "pred": int(preds[j]), "label": int(labels[j])})
+                if not keep:
+                    return
+            prep = prepare(imgs_dev, disps, keep) if prepare else None
+        except Exception as e:
+            # Skipped images are accounted for already; only the kept (or,
+            # before the predict, the whole) set counts as failed.
+            failed = [b[0] for b in batch] if keep is None else [batch[j][0] for j in keep]
+            res.images_failed += len(failed)
+            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            return
+        staged.append((imgs_dev, disps, keep, idxs, preds, gts, t0s, imgs, prep))
+        while len(staged) > 1:  # dispatch the previous staged flush
+            dispatch_staged()
+
+    for pos, item in enumerate(dataset):
+        if max_images is not None and pos >= max_images:
+            break
+        i = int(dataset_indices[pos]) if dataset_indices is not None else pos
+        if i in done:
+            continue
+        res.images_total += 1
+        t0 = time.perf_counter()
+        try:
+            image, label, gt_bbox = _unpack_item(item)
+            image = np.asarray(image)
+        except Exception as e:
+            res.images_failed += 1
+            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+            continue
+        if image.dtype == np.uint8 and normalize is None:
+            # A configuration error, not a per-image failure.
+            raise ValueError("dataset yielded uint8 images; pass normalize=(mean, std) "
+                             "so the sweep can scale + normalize them on device")
+        try:
+            pending.append((i, image, enqueue_display(image), label, gt_bbox, t0))
+            if len(pending) >= image_batch:
+                flush()
+        except Exception as e:
+            res.images_failed += 1
+            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+    flush()
+    while staged:
+        dispatch_staged()
+    while inflight:
+        finalize()
+    return total_evals
+
+
+def _kept(imgs_dev: torch.Tensor, keep) -> torch.Tensor:
+    """The kept images of a flush (the batch itself when all are kept)."""
+    if len(keep) == int(imgs_dev.shape[0]):
+        return imgs_dev
+    return imgs_dev[torch.as_tensor(keep, device=imgs_dev.device)]
+
+
+def _kept_targets(preds, keep):
+    """The kept images' targets: a device tensor on the deferred-predict
+    path (all kept), host ints otherwise."""
+    if isinstance(preds, torch.Tensor):
+        return preds
+    return np.asarray([int(preds[j]) for j in keep], np.int64)
+
+
+def _attr_evals_per_image(method: str, *, steps, samples, lm, rise_masks, mask_batch, patch,
+                          stride, scorecam_channels):
+    """Per-image device-eval count for :func:`attribution_sweep`'s
+    ``evals_per_sec``: backward passes for the gradient family, masked
+    forwards for the mask-batched family; occlusion's depends on the image
+    shape, so it is a callable the flush driver resolves per row."""
+    if method == "meaningful":
+        return int(lm.get("iters", 150))
+    if method == "rise":
+        chunk = 250 if mask_batch is None else int(mask_batch)
+        return -(-int(rise_masks) // chunk) * chunk  # rounds up, like rise_map
+    if method == "occlusion":
+        from network_interpretation_imagenet_tpu_torch.saliency.gradient import (
+            occlusion_positions,
+        )
+
+        # The position grid, ``patch=None``'s resolution-adaptive default
+        # resolved as occlusion_map resolves it (the JAX package's count
+        # raises on None and fails every image of such a sweep).
+        return lambda shape: len(occlusion_positions(int(shape[0]), int(shape[1]), patch,
+                                                     stride)[2])
+    if method == "scorecam":
+        return int(scorecam_channels)
+    return {"integrated": int(steps), "smoothgrad": int(samples),
+            "xrai": 2 * int(steps)}.get(method, 1)
+
+
+def bo_saliency_sweep(
+    engine: SaliencyEngine,
+    dataset: Iterable,
+    seg_cfg: SegmentConfig,
+    bo_cfg=None,
+    window_fraction: float = 0.4,
+    bbox_threshold: int = 180,
+    image_batch: int = 16,
+    max_images: Optional[int] = None,
+    seed: int = 0,
+    logger: Optional[PhaseLogger] = None,
+    proposals_per_iter: int = 1,
+    keep_heatmaps: bool = False,
+    dataset_indices=None,
+    journal=None,
+    fidelity_steps: int = 0,
+    normalize=None,
+) -> SweepResult:
+    """Val-set sweep driven by the flagship path, GP-EI BO per image
+    (``bayesian_active_learning_imagenet.py:379-498``), batched: every
+    ``image_batch`` images run as one fused BO program
+    (``bo_window_saliency_multi_async``, one CUDA graph per image count on
+    the card, B1 per image and B2 in every forward).
+
+    Misclassified images are skipped before dispatch (one batched predict
+    per flush), and only the kept images are segmented. Image j's draws come
+    from a generator seeded with ``seed + index``, so its row equals
+    ``bo_window_saliency(seed=seed + index)`` whatever the flush holds (up to
+    the rounding of a forward at another batch size), and a resumed journal
+    equals an uninterrupted run. Per-image ``seconds`` span the whole
+    flush's program: an upper bound shared by up to ``image_batch`` images.
+
+    ``normalize=(mean, std)``: the uint8 wire (see ``_batched_flush_sweep``).
+    With ``seg_cfg.method == "slic"`` the displays derive on the device from
+    the normalized batch; with Felzenszwalb the display stretches the raw
+    uint8 image.
+    """
+    from network_interpretation_imagenet_tpu_torch.config import BOConfig
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import (
+        bo_window_saliency_multi_async,
+    )
+
+    bo_cfg = bo_cfg or BOConfig()
+    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
+    t_start = time.perf_counter()
+
+    def enqueue_display(image):
+        return None if seg_cfg.method == "slic" else _display(image)
+
+    def prepare(imgs_dev, disps, keep):
+        """Enqueue SLIC's k-means on the device display of the kept images
+        as soon as the flush lands; the previous flush's host work runs
+        meanwhile."""
+        if seg_cfg.method != "slic":
+            return None  # Felzenszwalb is host work in dispatch
+        keep_imgs = _kept(imgs_dev, keep)
+        return keep_imgs, slic_batch_device(_display_batch(keep_imgs), seg_cfg, engine.device)
+
+    def dispatch(imgs_dev, disps, keep, idxs, preds, prep):
+        if prep is not None:
+            keep_imgs, segs_dev = prep
+            with log.phase("segment_batch", count=len(keep)):
+                segs = slic_postpass_host(_host(segs_dev), seg_cfg)
+        else:
+            keep_imgs = _kept(imgs_dev, keep)
+            with log.phase("segment_batch", count=len(keep)):
+                segs = [np.asarray(s, np.int32)
+                        for s in segment_image_batch([disps[j] for j in keep], seg_cfg)]
+        ss = [int(s.max()) + 1 for s in segs]
+        collect_fn = bo_window_saliency_multi_async(
+            engine, keep_imgs, segs, bo_cfg, window_fraction=window_fraction,
+            per_image_seeds=[seed + int(idxs[j]) for j in keep],
+            targets=_kept_targets(preds, keep), proposals_per_iter=proposals_per_iter)
+        return collect_fn, ss
+
+    def collect(state):
+        collect_fn, ss = state
+        return [(out.heatmap, {"num_segments": ss[pos],
+                               "survival": float(np.mean(out.eval.survived)),
+                               "best_start": int(trace.xp[np.argmax(trace.yp)])})
+                for pos, (out, trace) in enumerate(collect_fn())]
+
+    total_evals = _batched_flush_sweep(
+        engine, dataset, image_batch=image_batch, max_images=max_images, log=log, res=res,
+        iou_m=iou_m, surv_m=surv_m, latencies=latencies, done=done, journal=journal,
+        keep_heatmaps=keep_heatmaps, dataset_indices=dataset_indices,
+        bbox_threshold=bbox_threshold, fidelity_steps=fidelity_steps,
+        evals_per_image=bo_cfg.n_pre_samples + bo_cfg.n_iters * proposals_per_iter,
+        enqueue_display=enqueue_display, dispatch=dispatch, collect=collect,
+        normalize=normalize, prepare=prepare)
+    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
+                         time.perf_counter() - t_start)
+
+
+def attribution_sweep(
+    engine: SaliencyEngine,
+    dataset: Iterable,
+    method: str = "gradient",
+    bbox_threshold: int = 180,
+    image_batch: int = 16,
+    max_images: Optional[int] = None,
+    seed: int = 0,
+    logger: Optional[PhaseLogger] = None,
+    keep_heatmaps: bool = False,
+    dataset_indices=None,
+    journal=None,
+    fidelity_steps: int = 0,
+    steps: int = 16,
+    samples: int = 16,
+    noise_sigma: float = 0.15,
+    magnitude: bool = False,
+    gradcam_layer: Optional[str] = None,
+    step_batch: Optional[int] = None,
+    sample_batch: Optional[int] = None,
+    lm_cfg: Optional[dict] = None,
+    xrai_scales=None,
+    normalize=None,
+    heatmap_wire: str = "f32",
+    # None = occlusion_map's resolution-adaptive defaults.
+    patch: "int | None" = None,
+    stride: "int | None" = None,
+    rise_masks: int = 1000,
+    rise_grid: int = 7,
+    rise_keep_prob: float = 0.5,
+    mask_batch: Optional[int] = None,
+    scorecam_channels: int = 64,
+) -> SweepResult:
+    """Val-set sweep driven by the attribution family, through the same flush
+    driver as :func:`bo_saliency_sweep`; no segmentation (these methods
+    attribute pixels), and ``mean_survival`` stays 0.
+
+    ``method`` is one of ``gradient.BATCHABLE_METHODS`` (gradient,
+    grad_input, integrated, smoothgrad, gradcam: one stacked backward of the
+    plain module per flush, ``gradient.attribute_batch``), ``"meaningful"``
+    (the learned deletion mask per image,
+    ``learned_mask.learned_mask_batch_dispatch``, hyperparameters in
+    ``lm_cfg``; rows add prob_original and prob_masked), ``"xrai"`` (the
+    batched signed IG per flush, then per image the host Felzenszwalb ladder
+    and greedy ranking at collect time; rows add num_regions), or one of
+    ``gradient.MASK_BATCHED_METHODS`` (occlusion, rise, scorecam: one image
+    after another, each a run of masked forwards through the engine's folded
+    net, B2 on the card). Stochastic seeds are ``seed + index``, so rows do
+    not depend on the flush's composition and a resume equals an
+    uninterrupted run. ``evals_per_sec`` counts backward passes (``steps``
+    for integrated, ``samples`` for smoothgrad, the Adam ``iters`` for
+    meaningful, 1 otherwise) or masked forwards (rise's rounded-up masks,
+    occlusion's positions, scorecam's channels).
+
+    ``normalize=(mean, std)``: the uint8 wire (for xrai the raw image is the
+    ladder's display). ``heatmap_wire`` ``"f16"`` halves the heatmap fetch
+    (<= 2^-11 relative rounding), ``"u8"`` quarters it by per-image min-max
+    quantization (bbox and IOU exact); meaningful keeps f32, xrai's signed
+    maps refuse ``"u8"``.
+    """
+    if heatmap_wire not in ("f32", "f16", "u8"):
+        raise ValueError(f"heatmap_wire must be f32|f16|u8, got {heatmap_wire!r}")
+    if method == "meaningful" and heatmap_wire != "f32":
+        raise ValueError(f"heatmap_wire={heatmap_wire!r}: 'meaningful' keeps its f32 "
+                         f"tuple state (heatmaps + per-image probabilities)")
+    if method == "xrai" and heatmap_wire == "u8":
+        raise ValueError(
+            "heatmap_wire='u8': per-image min-max quantization destroys "
+            "the SIGN of xrai's attributions; use 'f16' (sign-preserving, "
+            "<=2^-11 relative rounding) or 'f32'")
+    from network_interpretation_imagenet_tpu_torch.saliency import gradient as gmod
+
+    all_methods = gmod.BATCHABLE_METHODS + ("meaningful", "xrai") + gmod.MASK_BATCHED_METHODS
+    if method not in all_methods:
+        raise ValueError(f"unknown attribution method {method!r}; choose from {all_methods}")
+    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
+    t_start = time.perf_counter()
+    lm = dict(lm_cfg or {})
+
+    def enqueue_display(image):
+        if method != "xrai":
+            return None
+        if image.dtype == np.uint8:  # uint8 wire: the raw image is the display
+            return image[:, :, 0] if image.ndim == 3 and image.shape[2] == 1 else image
+        return _display(image)
+
+    def wire(heats: torch.Tensor):
+        if heatmap_wire == "f16":
+            return heats.to(torch.float16)
+        if heatmap_wire == "u8":
+            return _quantize_heats_device(heats)
+        return heats
+
+    def dispatch(imgs_dev, disps, keep, idxs, preds, prep):
+        keep_imgs = _kept(imgs_dev, keep)
+        targets = _kept_targets(preds, keep)
+        seeds = np.asarray([seed + int(idxs[j]) for j in keep], np.int64)
+        if method == "meaningful":
+            from network_interpretation_imagenet_tpu_torch.saliency import learned_mask
+
+            return learned_mask.learned_mask_batch_dispatch(
+                engine.bundle.logits, engine.variables, keep_imgs, targets, seeds=seeds, **lm)
+        if method == "xrai":
+            from network_interpretation_imagenet_tpu_torch.saliency import xrai
+
+            attr = xrai.xrai_attribution_batch(engine.bundle.logits, engine.variables,
+                                               keep_imgs, targets, steps=steps,
+                                               step_batch=step_batch)
+            return (attr.to(torch.float16) if heatmap_wire == "f16" else attr,
+                    [disps[j] for j in keep])
+        if method in gmod.MASK_BATCHED_METHODS:
+            # The masked images in bf16, the methods' default, as the JAX
+            # package's sweep runs them whatever the engine's dtype.
+            return wire(gmod.mask_method_batch(
+                engine.folded_logits, engine.variables, keep_imgs, targets, method,
+                bundle=engine.bundle, seeds=seeds, patch=patch, stride=stride,
+                rise_masks=rise_masks, rise_grid=rise_grid, rise_keep_prob=rise_keep_prob,
+                mask_batch=mask_batch, gradcam_layer=gradcam_layer,
+                scorecam_channels=scorecam_channels))
+        return wire(gmod.attribute_batch(
+            engine.bundle.logits, engine.variables, keep_imgs, targets, method,
+            bundle=engine.bundle, steps=steps, samples=samples, noise_sigma=noise_sigma,
+            magnitude=magnitude, gradcam_layer=gradcam_layer, seeds=seeds,
+            step_batch=step_batch, sample_batch=sample_batch))
+
+    def collect(state):
+        if method == "xrai":
+            from network_interpretation_imagenet_tpu_torch.saliency import xrai
+            from network_interpretation_imagenet_tpu_torch.segment.felzenszwalb import (
+                felzenszwalb_ladder,
+            )
+
+            attrs, kept_disps = state
+            attrs = _host(attrs).astype(np.float32)  # one fetch; f16 back to f32
+            # None: the area-adaptive ladder (DEFAULT_SCALES is a 224^2 calibration).
+            scales = (xrai.adaptive_scales(*kept_disps[0].shape[:2])
+                      if xrai_scales is None else xrai_scales)
+            out = []
+            for pos in range(len(attrs)):
+                seg_maps = felzenszwalb_ladder(kept_disps[pos], scales, sigma=0.5)
+                heat, n_regions = xrai.greedy_region_ranking(attrs[pos], seg_maps)
+                out.append((heat, {"method": method, "num_regions": int(n_regions)}))
+            return out
+        if method == "meaningful":
+            heats, _, p_orig, p_masked, _ = (_host(t) for t in state)
+            return [(heats[pos], {"method": method,
+                                  "prob_original": round(float(p_orig[pos]), 6),
+                                  "prob_masked": round(float(p_masked[pos]), 6)})
+                    for pos in range(len(heats))]
+        if heatmap_wire == "u8":
+            q, lo, span = (_host(t) for t in state)
+            heats = lo[:, None, None] + q.astype(np.float32) * (span[:, None, None] / 255.0)
+        else:  # f32 (lossless) or f16 (reconstructs with rounding)
+            heats = _host(state).astype(np.float32)
+        return [(heats[pos], {"method": method}) for pos in range(len(heats))]
+
+    total_evals = _batched_flush_sweep(
+        engine, dataset, image_batch=image_batch, max_images=max_images, log=log, res=res,
+        iou_m=iou_m, surv_m=surv_m, latencies=latencies, done=done, journal=journal,
+        keep_heatmaps=keep_heatmaps, dataset_indices=dataset_indices,
+        bbox_threshold=bbox_threshold, fidelity_steps=fidelity_steps,
+        evals_per_image=_attr_evals_per_image(
+            method, steps=steps, samples=samples, lm=lm, rise_masks=rise_masks,
+            mask_batch=mask_batch, patch=patch, stride=stride,
+            scorecam_channels=scorecam_channels),
+        enqueue_display=enqueue_display, dispatch=dispatch, collect=collect,
+        normalize=normalize)
+    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
+                         time.perf_counter() - t_start)

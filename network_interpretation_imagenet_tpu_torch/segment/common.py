@@ -50,12 +50,13 @@ def segment_image(img_u8: np.ndarray, cfg: SegmentConfig, device=None) -> np.nda
 def segment_image_batch(displays, cfg: SegmentConfig, device=None) -> list:
     """Segment N display images; a list of int32[H, W] label maps equal to
     per-image :func:`segment_image` calls. SLIC runs the N k-means as one
-    batch on ``device`` (``None``: the card). Felzenszwalb's hot path
-    (scipy's smoothing and the native kernel) releases the GIL, so the images
-    fan out over a thread pool of up to 8 workers."""
-    displays = list(displays)
-    if cfg.method == "slic" and displays:
+    batch on ``device`` (``None``: the card); its displays may be a uint8
+    [N, H, W(, C)] tensor already there. Felzenszwalb's hot path (scipy's
+    smoothing and the native kernel) releases the GIL, so the images fan out
+    over a thread pool of up to 8 workers."""
+    if cfg.method == "slic" and len(displays):
         return slic_postpass_host(slic_batch_device(displays, cfg, device).cpu().numpy(), cfg)
+    displays = list(displays)
     workers = min(8, len(displays), os.cpu_count() or 1)
     if workers <= 1:
         return [segment_image(d, cfg) for d in displays]

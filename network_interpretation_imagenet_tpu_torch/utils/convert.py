@@ -5,7 +5,9 @@
 (numpy arrays) of an ImageNet ResNet -> this package's torchvision-keyed
 ``state_dict``.
 
-  * conv kernel HWIO [kH, kW, I, O] -> weight OIHW [O, I, kH, kW]
+  * conv kernel HWIO [kH, kW, I, O] -> weight OIHW [O, I, kH, kW] (a grouped
+    kernel, flax's [kH, kW, I/g, O], becomes torch's [O, I/g, kH, kW] by the
+    same transpose)
   * dense kernel [in, out]         -> weight [out, in]
   * BatchNorm scale / bias / mean / var -> weight / bias / running_mean / running_var
   * ``layer{s}_{b}`` -> ``layer{s}.{b}``; ``downsample_conv`` / ``downsample_bn``

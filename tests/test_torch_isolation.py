@@ -5,10 +5,10 @@ A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 and runs the CPU slice end to end (segment, predict, masked evals,
 heatmap, localization score), one small BO explanation, the knockout,
 threshold-search and multi-image paths, both GP surrogates, a
-checkpoint round trip and one attribution of each kind (an input
-gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), in the
-spirit of
-tests/test_weights_artifact.py's torch-blocked run."""
+checkpoint round trip, one attribution of each kind (an input
+gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), and the
+val-set sweeps (window with a journal, BO, attribution) and the sweep CLI,
+in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
 import pkgutil
@@ -96,6 +96,21 @@ assert 0.0 <= fid["deletion_auc"] <= 1.0 and 0.0 <= fid["insertion_auc"] <= 1.0
 slic_seg = segment_image(to_display_uint8(torch.from_numpy(image)).numpy(),
                          SegmentConfig(method="slic", n_segments=9), device="cpu")
 assert slic_seg.shape == (32, 32) and slic_seg.max() >= 1
+from network_interpretation_imagenet_tpu_torch.saliency import sweep
+from network_interpretation_imagenet_tpu_torch.saliency.journal import SweepJournal
+from network_interpretation_imagenet_tpu_torch.cli import saliency_sweep as sweep_cli
+items = [(image, None, (6, 4, 20, 16)), (image[::-1].copy(), None, None)]
+journal = SweepJournal(tmp + "/j.jsonl", config={"k": 6})
+swept = sweep.saliency_sweep(engine, items, SegmentConfig(min_size=5), num_mask_samples=6,
+                             image_batch=2, journal=journal)
+journal.close()
+bo_swept = sweep.bo_saliency_sweep(engine, items, SegmentConfig(min_size=5),
+                                   BOConfig(n_iters=1, n_pre_samples=2), image_batch=2)
+attr_swept = sweep.attribution_sweep(engine, items, method="gradient", image_batch=2)
+assert [r.images_explained for r in (swept, bo_swept, attr_swept)] == [2, 2, 2]
+sweep_cli.main(["--synthetic", "--num-images", "1", "--num_mask_samples", "4",
+                "--mask-batch", "4", "--dtype", "float32", "--device", "cpu",
+                "--out", tmp + "/cli"])
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -125,5 +140,7 @@ def test_no_jax_import_in_port_sources():
                  "cli.gp_regression", "cli.gp_classification", "saliency.eval_metrics",
                  "saliency.gradient", "saliency.xrai", "saliency.learned_mask",
                  "saliency.sanity", "segment.slic", "ops.resize", "cli.occlusion_saliency",
-                 "cli.compare_saliency_methods", "cli.attribution_sanity"):
+                 "cli.compare_saliency_methods", "cli.attribution_sanity", "saliency.sweep",
+                 "saliency.journal", "cli.saliency_sweep", "data.prefetch", "utils.logging",
+                 "utils.meters"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

@@ -108,8 +108,15 @@ def test_create_model_bundle_and_seeded_init():
     assert not torch.equal(a["conv1.weight"], c["conv1.weight"])
     assert torch.equal(a["layer3.5.bn2.running_var"], torch.ones(256))
     assert create_model("resnet18").module.stage_sizes == (2, 2, 2, 2)
+    for arch, stages, groups in (("resnext50_32x4d", (3, 4, 6, 3), 32),
+                                 ("resnext101_32x8d", (3, 4, 23, 3), 32),
+                                 ("wide_resnet50_2", (3, 4, 6, 3), 1),
+                                 ("wide_resnet101_2", (3, 4, 23, 3), 1)):
+        with torch.device("meta"):   # shapes only: no memory for the weights
+            module = create_model(arch).module
+        assert module.stage_sizes == stages and module.layer1[0].conv2.groups == groups
     with pytest.raises(ValueError):
-        create_model("resnext50_32x4d")
+        create_model("resnet19")
 
 
 def test_folded_plan_keeps_channels_last_and_runs_bf16():
