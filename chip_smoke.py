@@ -4,15 +4,21 @@
     python3 chip_smoke.py
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
-(ResNet-101, 224x224, bf16, seeded random weights) and holds every
-hand-written kernel against its plain PyTorch version on the card:
+(ResNet-101, 224x224, bf16, seeded random weights), every other classifier
+of the JAX package at its published size, and holds every hand-written
+kernel against its plain PyTorch version on the card:
 
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: compiles csrc/*.cu from the checkout (one nvcc per source, in
      parallel) into the package's _build/;
   3. B1 masked_batch vs its plain version, bf16 and f32, bit-exact, at the
      random-window chunk (K=256), the BO loop's K = 1 and 3 with the width
-     read on the device, and into an out= slice of a larger buffer;
+     read on the device, and into an out= slice of a larger buffer; and at
+     the new archs' shapes, 28x28x1 (MNIST: the generic C=1 instance),
+     32x32x3 (CIFAR) and 299x299x3 (Inception-v3: H*W*C not a multiple of
+     8, so scalar loads at row ends and scalar stores), each at K = 256
+     (the engine's chunk), 1,000 and 1,024, with device time, plain time
+     and bytes bound at 1,024;
   4. B2 bottleneck_chain vs its plain version at all four ResNet-101 stage
      shapes with the real block counts, block by block within bf16
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
@@ -113,7 +119,28 @@ hand-written kernel against its plain PyTorch version on the card:
  20. [B2 graphs], last: B2 and its bf16 cuDNN yardstick as CUDA graph
      replays at the BO's batches and at the attribution family's 41, 64,
      66 and 250 (each of these also checked block by block against the
-     plain version at B2_TOL), with the chain bound at each batch.
+     plain version at B2_TOL), with the chain bound at each batch;
+ 21. [zoo] (run after [sweep]): every arch the JAX package explains beyond
+     the ImageNet ResNets, at published width and depth with seeded random
+     weights, each on its own bf16 engine (its eval-mode module, no B2):
+     the MNIST CNN (28x28x1), the CIFAR ResNet-56 and DenseNet-BC-100 k=12
+     (cifar10+, 32x32), VGG-16-BN, AlexNet, SqueezeNet 1.1, DenseNet-121,
+     GoogLeNet, MobileNetV2, ShuffleNetV2 x1.0, MNASNet 1.0 (224x224) and
+     Inception-v3 (299x299). Per arch: the engine's bf16 plan against the
+     plain module in f32 on 32 window-masked images (ZOO_TOL of max |logit|)
+     and the f32 module on the card against the CPU on 8 (ZOO_F32_TOL);
+     B1 bit for bit against its plain version at each of the window path's
+     chunks, on the arch's own segments and starts; 1,024 window masks (B1
+     4, B2 0) and 1,024 knockouts at M=1 (B1 0, B2 0), with their evals/s
+     (median, fastest and slowest of 5-100 warm calls);
+ 22. [bo zoo]: bo_window_saliency at DenseNet-121 224 bf16 from an empty
+     runner cache: the first call eager (B1 11, B2 0), the second captures
+     and replays (B1 11, B2 0), the third only replays (B1 0, B2 0); the
+     replays equal the eager run;
+ 23. [gen mnist], [gen cifar]: the two generators' gp-data compute (1,000
+     knockouts, M = 1 and 5; B1 0, B2 0) on their own engines, from a
+     weights artifact the port wrote (read back bit for bit), with their
+     result JSON.
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -128,6 +155,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -176,6 +204,19 @@ ATTR_F32_RHO = 0.99
 # (After 3 steps the CPU's own f32 mask is Spearman 0.82 from float64's, its
 # loss 2.8 % off: Adam's near-sign steps amplify the gradients' rounding.)
 ATTR_LM_TOL = 1e-3
+# B1 at the new archs' shapes: MNIST, CIFAR, Inception-v3; K the engine's
+# chunk (the [zoo] window path's launches), the generators' default and 1,024.
+B1_SHAPES = ((28, 28, 1), (32, 32, 3), (299, 299, 3))
+B1_KS = (MASK_BATCH, 1000, 1024)
+# [zoo]: (arch, dataset, create_model kwargs) at published width and depth.
+ZOO = (("mnist_cnn", "mnist", {}), ("resnet", "cifar10+", {"depth": 56}),
+       ("densenet", "cifar10+", {"depth": 100}), ("vgg16_bn", "imagenet", {}),
+       ("alexnet", "imagenet", {}), ("squeezenet1_1", "imagenet", {}),
+       ("densenet121", "imagenet", {}), ("googlenet", "imagenet", {}),
+       ("mobilenet_v2", "imagenet", {}), ("shufflenet_v2_x1_0", "imagenet", {}),
+       ("mnasnet1_0", "imagenet", {}), ("inception_v3", "imagenet", {}))
+ZOO_TOL = 0.05               # a bf16 plan vs the plain f32 module: x max |logit|, as [main]
+ZOO_F32_TOL = 1e-4           # the f32 module, card vs CPU: x max |logit|, as [main]'s f32 engine
 PKG = "network_interpretation_imagenet_tpu_torch"
 
 
@@ -1502,8 +1543,6 @@ def calibrated_state_dict(bundle, seeds):
 
 def attr_phase(normalized, display, smi, by_path):
     """The attribution family at full width (see the module docstring, 15)."""
-    import types
-
     import torch
 
     from network_interpretation_imagenet_tpu_torch.models import create_model, resnet_imagenet
@@ -1849,6 +1888,258 @@ def slic_phase(display, smi):
         f"pass {seg:.3f} ms (p50)")
 
 
+def b1_shapes(smi):
+    """B1 at the new archs' image shapes (see the module docstring, 3): each
+    against its plain version bit for bit, bf16 and f32, at K = 256 (the
+    engine's chunk, which [zoo]'s window paths launch), 1,000 (the
+    generators' default, not a multiple of any group) and 1,024; device
+    time, plain time and the bytes bound at K = 1,024 bf16. Returns one
+    record per shape for the kernels line."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 3)
+    records = []
+    for h, w, c in B1_SHAPES:
+        hh, ww = np.mgrid[0:h, 0:w]
+        cell = max(h // 7, 1)
+        seg_np = ((hh // cell) * (w // cell + 1) + ww // cell).astype(np.int32)
+        s = int(seg_np.max()) + 1
+        width = max(1, int(0.4 * s))
+        image = torch.from_numpy(rng.randn(h, w, c).astype(np.float32)).to(dev)
+        seg = torch.from_numpy(seg_np).to(dev)
+        for k in B1_KS:
+            firsts = torch.from_numpy(masking.sample_window_starts_host(SEED, k, s, width)).to(dev)
+            for dt in (torch.float32, torch.bfloat16):
+                if not torch.equal(masked_batch(image, seg, firsts, width, dt),
+                                   masked_batch_plain(image, seg, firsts, width, dt)):
+                    raise AssertionError(f"B1 {dt} {h}x{w}x{c} K={k}: kernel differs from its "
+                                         "plain version")
+        ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 20,
+                       "b1_masked_batch")
+        plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
+                                                      torch.bfloat16), 20)
+        nbytes = k * h * w * c * 2 + h * w * (c * 4 + 4) + k * 4
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        records.append({"shape": [h, w, c], "k": k, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "bytes"})
+        log(f"[B1] {smi}: {h}x{w}x{c} S={s}, K = {' and '.join(map(str, B1_KS))}: bit-exact "
+            f"bf16+f32; at K={k} bf16 kernel {ms:.4f} ms (device time), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({nbytes} bytes), {bound / ms:.3f} of bound")
+        del image, seg, firsts
+    return records
+
+
+def zoo_image(dataset, size):
+    """(normalized f32 HWC, display uint8) of the synthetic image at
+    ``size``^2 for ``dataset`` (one gray channel for MNIST), as the CLIs'
+    resolve_image makes them."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import DATASETS
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
+        normalize,
+        to_display_uint8,
+    )
+
+    spec = DATASETS[dataset]
+    img_u8, _ = synthetic_image(SEED, size)
+    base = np.ascontiguousarray(img_u8[:, :, :spec.channels].astype(np.float32) / 255.0)
+    normalized = normalize(torch.from_numpy(base), spec.mean, spec.std).numpy()
+    display = to_display_uint8(torch.from_numpy(normalized)).numpy()
+    return normalized, (display[:, :, 0] if spec.channels == 1 else display)
+
+
+def zoo_phase(smi, by_path):
+    """Every new arch at full width and depth (see the module docstring, 21)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli.common import segment_config
+    from network_interpretation_imagenet_tpu_torch.models import ModulePlan, create_model
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    dev = torch.device("cuda")
+    chunks = -(-NUM_SAMPLES // MASK_BATCH)
+    rates = {}
+    for arch, dataset, kw in ZOO:
+        t_arch = time.perf_counter()
+        bundle = create_model(arch, dataset, dtype=torch.bfloat16, **kw)
+        sd = bundle.init(SEED)
+        normalized, display = zoo_image(dataset, bundle.input_size)
+        args = types.SimpleNamespace(dataset=dataset, segmenter="felzenszwalb", scale=None,
+                                     sigma=0.5, min_size=None, n_segments=48)
+        segments = segment_image(display, segment_config(args))
+        s = int(segments.max()) + 1
+        width = max(1, int(0.4 * s))
+        firsts = masking.sample_window_starts_host(SEED, NUM_SAMPLES, s, width)
+        knock = masking.sample_knockout_ids_host(SEED, NUM_SAMPLES, 1, s)
+        engine = SaliencyEngine(bundle, sd, mask_batch=MASK_BATCH, device="cuda")
+        target = engine.predict_one(normalized)[0]
+        # B1 at every chunk the window path below gives it, on this arch's own
+        # segments and starts: bit for bit against its plain version.
+        image_t, seg_t = (torch.from_numpy(normalized).to(dev),
+                          torch.from_numpy(segments).to(dev))
+        firsts_t = torch.from_numpy(firsts).to(dev)
+        for off in range(0, NUM_SAMPLES, MASK_BATCH):
+            part = firsts_t[off:off + MASK_BATCH]
+            if not torch.equal(masked_batch(image_t, seg_t, part, width, engine.compute_dtype),
+                               masked_batch_plain(image_t, seg_t, part, width,
+                                                  engine.compute_dtype)):
+                raise AssertionError(f"[zoo] {arch}: B1 chunk at {off} differs from its plain "
+                                     "version")
+        # The engine's bf16 plan against the plain module in f32, 32 masked images.
+        x = masked_batch_plain(image_t, seg_t, firsts_t[:32], width, torch.float32)
+        f32 = ModulePlan(bundle.module, sd, torch.float32, dev)
+        with torch.inference_mode():
+            got, want = engine.model(x.to(torch.bfloat16)), f32(x)
+            cpu = ModulePlan(bundle.module, sd, torch.float32, "cpu")(x[:8].cpu())
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        err32 = (want[:8].cpu() - cpu).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        if not (torch.isfinite(got).all() and err <= ZOO_TOL * scale
+                and err32 <= ZOO_F32_TOL * cpu.abs().max().item()):
+            raise AssertionError(f"[zoo] {arch}: bf16 plan vs f32 module err {err} (max |logit| "
+                                 f"{scale}), f32 card vs CPU err {err32}")
+        del f32, cpu, x, image_t, seg_t, firsts_t
+        res = counted(by_path, f"zoo_{arch}_window", lambda: engine.eval_window_masks(
+            normalized, segments, firsts, width, target), chunks, 0)
+        ko = counted(by_path, f"zoo_{arch}_knockout", lambda: engine.eval_knockout_masks(
+            normalized, segments, knock, target), 0, 0)
+        if not (np.isfinite(res.prob_target).all() and np.isfinite(ko.prob_target).all()):
+            raise AssertionError(f"[zoo] {arch}: non-finite outcomes")
+
+        win = zoo_rate(lambda: engine.eval_window_masks(normalized, segments, firsts, width,
+                                                        target))
+        kor = zoo_rate(lambda: engine.eval_knockout_masks(normalized, segments, knock, target))
+        rates[arch] = {"window": win, "knockout": kor}
+        h = bundle.input_size
+        log(f"[zoo] {smi}: {arch} ({dataset}, {h}x{h}x{bundle.input_channels}, S={s}, "
+            f"target {target}): bf16 plan vs plain f32 module, 32 masked images, max logit err "
+            f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}), argmax agreement "
+            f"{agree:.3f}; B1 bit-exact at its {chunks} chunks; f32 card vs CPU, 8 images, "
+            f"{err32:.3g}; {NUM_SAMPLES} window masks {win['p50']:.1f} evals/s (range "
+            f"{win['min']:.1f}-{win['max']:.1f} over {win['calls']} calls, survived "
+            f"{int(res.survived.sum())}), {NUM_SAMPLES} knockouts M=1 {kor['p50']:.1f} evals/s "
+            f"(range {kor['min']:.1f}-{kor['max']:.1f} over {kor['calls']} calls, survived "
+            f"{int(ko.survived.sum())}), mask_batch {MASK_BATCH}; launches window {json.dumps(by_path[f'zoo_{arch}_window'])}, "
+            f"knockout {json.dumps(by_path[f'zoo_{arch}_knockout'])}; "
+            f"{time.perf_counter() - t_arch:.1f} s")
+        del engine, bundle, sd
+        torch.cuda.empty_cache()
+    log(f"[zoo] {smi}: evals/s (median, range, calls) " + json.dumps(rates))
+
+
+def zoo_rate(fn):
+    """evals/s of ``fn`` (one call evaluates NUM_SAMPLES masks and waits for
+    its results on the host): the median over as many warm calls as fill
+    about half a second (5 to 100; a small net's call lasts a few ms), with
+    the fastest and slowest call."""
+    t0 = time.perf_counter()
+    fn()
+    calls = int(min(100, max(5, 0.5 / (time.perf_counter() - t0))))
+    ts = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    r = NUM_SAMPLES / np.asarray(ts)
+    return {"p50": round(float(np.median(r)), 1), "min": round(float(r.min()), 1),
+            "max": round(float(r.max()), 1), "calls": calls}
+
+
+def bo_zoo_phase(image, segments, smi, by_path):
+    """bo_window_saliency at DenseNet-121 (see the module docstring, 22)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import BOConfig
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+
+    cfg = BOConfig()
+    n_fwd = 1 + cfg.n_iters
+    bundle = create_model("densenet121", "imagenet", dtype=torch.bfloat16)
+    engine = SaliencyEngine(bundle, bundle.init(SEED), mask_batch=MASK_BATCH, device="cuda")
+    target = engine.predict_one(image)[0]
+
+    def explain():
+        return bo_window_saliency(engine, image, segments, cfg, seed=SEED, target=target)
+
+    _, eager = counted(by_path, "bo_zoo_first_call", explain, n_fwd, 0)
+    _, graph = counted(by_path, "bo_zoo_capture", explain, n_fwd, 0)
+    t0 = time.perf_counter()
+    _, replayed = counted(by_path, "bo_zoo_replay", explain, 0, 0)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    ys_err = float(np.abs(graph.yp - eager.yp).max())
+    if not (np.array_equal(graph.xp, eager.xp) and np.array_equal(graph.survived, eager.survived)
+            and ys_err <= 1e-6 and np.array_equal(replayed.xp, graph.xp)
+            and np.array_equal(replayed.yp, graph.yp)):
+        raise AssertionError(f"[bo zoo] replay {graph.xp.tolist()} vs eager {eager.xp.tolist()}, "
+                             f"ys err {ys_err}")
+    log(f"[bo zoo] {smi}: densenet121 224 bf16, target {target}: xp {eager.xp.tolist()} survived "
+        f"{int(eager.survived.sum())}/{len(eager.xp)}; replays equal the eager run (ys err "
+        f"{ys_err:.3g}); a warm replayed call {replay_ms:.2f} ms; launches first call / capture / "
+        "replay " + " / ".join(json.dumps(by_path[k]) for k in
+                               ("bo_zoo_first_call", "bo_zoo_capture", "bo_zoo_replay")))
+    del engine
+    torch.cuda.empty_cache()
+
+
+def gen_small_phase(smi, by_path):
+    """The MNIST and CIFAR generators (see the module docstring, 23)."""
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_cifar
+    from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_mnist
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.utils import convert
+
+    for name, gen, arch, dataset in (("mnist", generate_gp_training_data_mnist, "mnist_cnn",
+                                      "mnist"),
+                                     ("cifar", generate_gp_training_data_cifar, "resnet",
+                                      "cifar10+")):
+        with tempfile.TemporaryDirectory() as tmp:
+            bundle = create_model(arch, dataset)
+            sd = bundle.init(SEED)
+            art = f"{tmp}/weights"
+            convert.save_weights_artifact(convert.jax_variables(sd, bundle.module), art,
+                                          meta={"arch": arch, "dataset": dataset})
+            back = convert.from_jax(convert.load_weights_artifact(art)[0], bundle.module)
+            if not all(torch.equal(back[k], sd[k]) for k in sd):
+                raise AssertionError(f"[gen {name}] the artifact does not read back bit for bit")
+            args = gen.parse_args(["--synthetic", "--ckpt", art, "--out", f"{tmp}/out"])
+            t0 = time.perf_counter()
+            payload, result = counted(by_path, f"gen_{name}",
+                                      lambda: quiet(lambda: gen.compute(args)), 0, 0)
+            seconds = time.perf_counter() - t0
+        out = result["out"]
+        if not (np.isfinite(out.heatmap).all() and out.masks.shape[0] == args.num_mask_samples
+                and payload["num_segments"] == out.num_segments
+                and payload["correct_pred_count"] == int(out.eval.survived.sum())):
+            raise AssertionError(f"[gen {name}] payload {payload}")
+        log(f"[gen {name}] {smi}: {arch} ({args.dataset}, {args.dtype}), weights from a port-"
+            f"written artifact ({len(sd)} tensors, read back bit for bit); {args.num_mask_samples}"
+            f" knockouts of M={args.num_masked_superpixels}; compute {seconds * 1e3:.1f} ms with "
+            f"its engine build; payload " + json.dumps({k: v for k, v in payload.items()
+                                                         if k != "masks_npz"})
+            + f"; launches {json.dumps(by_path[f'gen_{name}'])}")
+
+
 def main() -> int:
     import torch
 
@@ -1941,6 +2232,7 @@ def main() -> int:
         masked_batch(image, seg, firsts[:3], width_dev, dt, out=buf[3:])
         if not torch.equal(buf[3:], want[:3]) or buf[:3].any():
             raise AssertionError(f"B1 {dt}: out= slice differs from the default")
+    b1_by_shape = b1_shapes(smi)
     b1_ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50,
                       "b1_masked_batch")
     b1_plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
@@ -2141,6 +2433,9 @@ def main() -> int:
     attr_cli_phase(paths, calibrated)
     slic_phase(display, smi)
     sweep_phase(engine, smi, paths)
+    zoo_phase(smi, paths)
+    bo_zoo_phase(normalized, seg_np, smi, paths)
+    gen_small_phase(smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
@@ -2151,7 +2446,7 @@ def main() -> int:
          "launches": sum(by_path["masked_batch"].values()),
          "launches_by_path": by_path["masked_batch"], "max_abs_err": 0.0, "ms": b1_ms,
          "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms, "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "by_shape": b1_by_shape},
         {"name": "bottleneck_chain", "route": "cuda",
          "source": f"{PKG}/csrc/bottleneck_chain.cu",
          "replaces": "network_interpretation_imagenet_tpu/ops/pallas_bottleneck.py:105",

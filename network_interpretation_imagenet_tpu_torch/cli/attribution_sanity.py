@@ -59,7 +59,7 @@ def compute(args) -> dict:
     # Stage-outer: each spliced state dict builds one engine, shared by the methods.
     for stage in stages:
         done.append(stage)
-        rand = sanity.randomize_modules(engine.variables, random_vars, done)
+        rand = sanity.randomize_modules(engine.variables, random_vars, done, bundle)
         eng = SaliencyEngine(bundle, rand, mask_batch=args.mask_batch,
                              compute_dtype=engine.compute_dtype, device=engine.device)
         for m in methods:

@@ -2,9 +2,9 @@
 ported CLIs use): flags, image and engine resolution, artifact writers.
 
 The flag names are the JAX package's. ``--device {cuda,cpu}`` takes the
-place of ``--platform``; the flags that served only XLA's compilation cache,
-``--local-devices`` and the loaders of other datasets are not here. PIL is
-imported only where an image is read or written.
+place of ``--platform``; the flags that served only XLA's compilation cache
+and ``--local-devices`` are not here. PIL is imported only where an image is
+read or written.
 """
 
 from __future__ import annotations
@@ -20,16 +20,32 @@ import numpy as np
 import torch
 
 from network_interpretation_imagenet_tpu_torch.config import DATASETS, SegmentConfig
-from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import ARCHS
+from network_interpretation_imagenet_tpu_torch.models import ALL_ARCHS
+
+# Architecture flags restored from a checkpoint on --resume, so that the
+# rebuilt model matches the saved weights (the reference's arch_resume_names).
+ARCH_RESUME_NAMES = ("arch", "depth", "death_mode", "death_rate", "growth_rate", "bn_size",
+                     "compression")
 
 
-def build_parser(description: str) -> argparse.ArgumentParser:
+def apply_arch_resume(args, arch_args: Optional[dict]) -> None:
+    """Overwrite ``args``' architecture flags from a checkpoint's saved
+    ``arch_args`` (nothing where the checkpoint has none)."""
+    for name in ARCH_RESUME_NAMES:
+        if arch_args and name in arch_args:
+            val = arch_args[name]
+            setattr(args, name, val.item() if hasattr(val, "item") else val)
+
+
+def build_parser(description: str, dataset_default: str = "imagenet") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     g = p.add_argument_group("data")
     g.add_argument("--data", default=None,
-                   help="ImageNet-localization root (LOC_val_solution.csv + synset dirs) or "
-                        "a class-subdirectory image folder; none: a synthetic image")
-    g.add_argument("--dataset", default="imagenet", choices=["imagenet"])
+                   help="imagenet: an ImageNet-localization root (LOC_val_solution.csv + "
+                        "synset dirs) or a class-subdirectory image folder; mnist: the IDX "
+                        "files' directory; cifar*: the python pickles' directory; none: a "
+                        "synthetic image")
+    g.add_argument("--dataset", default=dataset_default, choices=sorted(DATASETS))
     g.add_argument("--synthetic", action="store_true",
                    help="use a deterministic synthetic image (no dataset needed)")
     g.add_argument("--eval_img_index", type=int, default=1,
@@ -39,9 +55,19 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "(reference DataLoader num_workers; 0 = serial)")
 
     g = p.add_argument_group("model")
-    g.add_argument("--arch", "-a", default="resnet18", choices=ARCHS)
+    g.add_argument("--arch", "-a", default="resnet18", choices=ALL_ARCHS)
+    g.add_argument("--depth", "-d", type=int, default=56,
+                   help="depth of the CIFAR resnet / densenet")
+    g.add_argument("--death-mode", default="none", choices=["none", "linear", "uniform"])
+    g.add_argument("--death-rate", type=float, default=0.5)
+    g.add_argument("--growth-rate", type=int, default=12, help="DenseNet growth rate")
+    g.add_argument("--bn-size", type=int, default=4, help="DenseNet bottleneck ratio")
+    g.add_argument("--compression", type=float, default=0.5, help="DenseNet compression ratio")
     g.add_argument("--ckpt", default=None,
-                   help="torch state dict (.pth / .pth.tar, torchvision keys) to load")
+                   help="weights: a weights artifact (a directory or .msgpack from "
+                        "cli.convert_checkpoint, either package's), a torch checkpoint "
+                        "(.pth / .pth.tar / .tar, torchvision's or the reference's keys) or "
+                        "a checkpoint directory (utils.checkpoint)")
     g.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     g.add_argument("--mask-batch", type=int, default=1024)
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -54,7 +80,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     g.add_argument("--scale", type=float, default=None)
     g.add_argument("--sigma", type=float, default=0.5)
     g.add_argument("--min_size", type=int, default=None,
-                   help="default: the reference's 50 for imagenet")
+                   help="default: the reference's per dataset, 50 imagenet, 5 mnist, 10 cifar")
     g.add_argument("--n_segments", type=int, default=48, help="slic: target superpixel count")
 
     g = p.add_argument_group("masks")
@@ -142,7 +168,10 @@ def add_gp_flags(p: argparse.ArgumentParser) -> None:
 
 
 def segment_config(args) -> SegmentConfig:
-    min_size = 50 if args.min_size is None else args.min_size  # reference :150
+    min_size = args.min_size
+    if min_size is None:  # the reference's per-dataset defaults
+        min_size = (5 if args.dataset == "mnist" else 10 if args.dataset.startswith("cifar")
+                    else 50)
     return SegmentConfig(method=args.segmenter, scale=args.scale, sigma=args.sigma,
                          min_size=min_size, n_segments=args.n_segments)
 
@@ -165,8 +194,21 @@ def _cached_dataset(data_dir: str, raw_u8: bool = False):
     return ImageFolderDataset(data_dir, raw_u8=raw_u8)
 
 
+@functools.lru_cache(maxsize=4)
+def _cached_arrays(dataset: str, data_dir: str):
+    """The MNIST or CIFAR test set at ``data_dir``, read once per process."""
+    from network_interpretation_imagenet_tpu_torch.data import loaders
+
+    if dataset == "mnist":
+        return loaders.load_mnist_dir(data_dir, train=False)
+    load = loaders.load_cifar100_dir if dataset.startswith("cifar100") else loaders.load_cifar10_dir
+    return load(data_dir, train=False)
+
+
 def resolve_image(args) -> Tuple[np.ndarray, np.ndarray, Optional[int], Optional[np.ndarray]]:
-    """-> (normalized f32 HWC image, display uint8 HWC, label?, gt_bbox?)."""
+    """-> (normalized f32 HWC image, display uint8 image, label?, gt_bbox?).
+    The display is HWC, or HW gray for MNIST; the synthetic image keeps its
+    first channel for a one-channel dataset."""
     from network_interpretation_imagenet_tpu_torch.ops import preprocess
 
     spec = DATASETS[args.dataset]
@@ -176,34 +218,58 @@ def resolve_image(args) -> Tuple[np.ndarray, np.ndarray, Optional[int], Optional
         )
 
         base = synthetic_imagenet_image(args.seed + args.eval_img_index, spec.image_size)
-        img = preprocess.normalize(torch.from_numpy(base), spec.mean, spec.std).numpy()
-        label, gt = None, None
-    else:
-        # The reference counts images 1-based.
-        img, label, gt = _cached_dataset(args.data)[max(args.eval_img_index - 1, 0)]
-    disp = preprocess.to_display_uint8(torch.from_numpy(img)).numpy()
-    return img, disp, label, gt
+        base = base[:, :, :spec.channels]
+        img = preprocess.normalize(torch.from_numpy(np.ascontiguousarray(base)), spec.mean,
+                                   spec.std).numpy()
+        disp = preprocess.to_display_uint8(torch.from_numpy(img)).numpy()
+        return img, (disp[:, :, 0] if spec.channels == 1 else disp), None, None
+    i = max(args.eval_img_index - 1, 0)  # the reference counts images 1-based
+    if args.dataset == "imagenet":
+        img, label, gt = _cached_dataset(args.data)[i]
+        return img, preprocess.to_display_uint8(torch.from_numpy(img)).numpy(), label, gt
+    xs, ys = _cached_arrays(args.dataset, args.data)
+    if args.dataset == "mnist":
+        img = xs[i]
+        return img, (img[:, :, 0] * 255).astype(np.uint8), int(ys[i]), None
+    img = preprocess.normalize(torch.from_numpy(xs[i]), spec.mean, spec.std).numpy()
+    return img, preprocess.to_display_uint8(torch.from_numpy(img)).numpy(), int(ys[i]), None
 
 
-def _state_dict(path: str) -> dict:
-    """A torch state dict from ``.pth`` / ``.pth.tar``: the top level or its
-    ``state_dict`` entry, with DataParallel's ``module.`` prefix stripped."""
-    if not path.endswith((".pth", ".pth.tar")):
-        raise ValueError(f"--ckpt {path}: only torch state dicts (.pth, .pth.tar) are read "
-                         "so far; the other checkpoint formats wait for ROADMAP A15")
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    sd = blob.get("state_dict", blob)
-    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-
-
-def build_engine(args):
+def build_engine(args, num_classes: Optional[int] = None):
+    """The engine of ``--arch`` on ``--device``, its weights from ``--ckpt``:
+    a weights artifact (through ``utils.convert.from_jax``), a torch
+    checkpoint (``utils.convert.convert_checkpoint``) or a checkpoint
+    directory holding flax-style ``params`` / ``batch_stats``
+    (``utils.checkpoint``); seeded random weights without one."""
     from network_interpretation_imagenet_tpu_torch.models import create_model
     from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.utils import convert
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    bundle = create_model(args.arch, args.dataset, dtype=dtype)
-    if args.ckpt:
-        state_dict = _state_dict(args.ckpt)
+    bundle = create_model(args.arch, args.dataset, num_classes=num_classes, dtype=dtype,
+                          depth=args.depth, death_mode=args.death_mode,
+                          death_rate=args.death_rate, growth_rate=args.growth_rate,
+                          bn_size=args.bn_size, compression=args.compression)
+    ckpt = args.ckpt
+    if ckpt and convert.is_weights_artifact(ckpt):
+        variables, meta = convert.load_weights_artifact(ckpt)
+        if meta.get("arch") and meta["arch"] != args.arch:
+            raise ValueError(f"--ckpt artifact was converted for arch {meta['arch']!r} "
+                             f"but --arch is {args.arch!r}")
+        state_dict = convert.from_jax(variables, bundle.module)
+    elif ckpt and ckpt.endswith((".pth.tar", ".pth", ".tar")):
+        state_dict = convert.convert_checkpoint(ckpt, args.arch, depth=args.depth,
+                                                bn_size=args.bn_size)
+    elif ckpt:
+        from network_interpretation_imagenet_tpu_torch.utils.checkpoint import restore_checkpoint
+
+        blob = restore_checkpoint(os.path.dirname(ckpt) or ".", os.path.basename(ckpt))
+        if blob is None:
+            raise FileNotFoundError(f"--ckpt {ckpt}: no checkpoint there")
+        variables = {"params": blob["params"]}
+        if "batch_stats" in blob:
+            variables["batch_stats"] = blob["batch_stats"]
+        state_dict = convert.from_jax(variables, bundle.module)
     else:
         print("[warn] no --ckpt: random-initialized weights", file=sys.stderr)
         state_dict = bundle.init(args.seed)

@@ -19,19 +19,34 @@ all of its blocks are plain torch ops too, the 3x3 a grouped convolution.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from network_interpretation_imagenet_tpu_torch.models.common import fold_bn, max_pool_same
+from network_interpretation_imagenet_tpu_torch.models.common import (
+    Classifier,
+    fold_bn,
+    max_pool_same,
+    parts_of,
+)
 from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_plain,
 )
+
+
+_RENAME = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
+def torch_name(path) -> str:
+    """A flax module path of a ResNet (ImageNet or CIFAR) -> its torch name:
+    ``layer{s}_{b}`` -> ``layer{s}.{b}``, ``downsample_conv`` /
+    ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``."""
+    return ".".join(p.replace("_", ".") if p.startswith("layer") and "_" in p
+                    else _RENAME.get(p, p) for p in parts_of(path))
 
 
 class BasicBlock(nn.Module):
@@ -86,17 +101,18 @@ class Bottleneck(nn.Module):
         return torch.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Classifier):
     """torchvision-compatible ResNet over ``block`` (:class:`BasicBlock` or
     :class:`Bottleneck`, the latter with ``groups`` and ``base_width``);
     ``forward`` takes NHWC."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
-                 block: type = Bottleneck, groups: int = 1, base_width: int = 64) -> None:
+                 block: type = Bottleneck, groups: int = 1, base_width: int = 64,
+                 in_channels: int = 3) -> None:
         super().__init__()
         self.stage_sizes = tuple(int(n) for n in stage_sizes)
         bkw = dict(groups=groups, base_width=base_width) if block is Bottleneck else {}
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         inplanes = 64
         for stage, num_blocks in enumerate(self.stage_sizes):
@@ -119,25 +135,23 @@ class ResNet(nn.Module):
             x = getattr(self, f"layer{stage + 1}")(x)
         return self.fc(x.mean(dim=(2, 3)))
 
-    def init_state_dict(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """A seeded random ``state_dict`` with torchvision's init: convs
-        Kaiming-normal (fan_out, ReLU), BatchNorm weight 1 / bias 0 / running
-        statistics 0 and 1, ``fc`` uniform in ``+-1/sqrt(fan_in)``."""
-        sd = {}
-        for name, t in self.state_dict().items():
-            if name.endswith("num_batches_tracked"):
-                sd[name] = torch.zeros_like(t)
-            elif t.dim() == 4:
-                fan_out = t.shape[0] * t.shape[2] * t.shape[3]
-                sd[name] = torch.randn(t.shape, generator=generator) * math.sqrt(2.0 / fan_out)
-            elif name.startswith("fc."):
-                bound = 1.0 / math.sqrt(self.fc.in_features)
-                sd[name] = (torch.rand(t.shape, generator=generator) * 2 - 1) * bound
-            elif name.endswith(("weight", "running_var")):
-                sd[name] = torch.ones_like(t)
-            else:
-                sd[name] = torch.zeros_like(t)
-        return sd
+    def flax_paths(self) -> list:
+        """``conv1``, ``bn1``, ``layer1_0``, ``layer1_0/conv1``, ...,
+        ``layer1_0/downsample_bn``, ..., ``fc``."""
+        paths = ["conv1", "bn1"]
+        for s, n in enumerate(self.stage_sizes, start=1):
+            for b in range(n):
+                block = getattr(self, f"layer{s}")[b]
+                p = f"layer{s}_{b}"
+                paths.append(p)
+                for c in range(1, (3 if isinstance(block, Bottleneck) else 2) + 1):
+                    paths += [f"{p}/conv{c}", f"{p}/bn{c}"]
+                if block.downsample is not None:
+                    paths += [f"{p}/downsample_conv", f"{p}/downsample_bn"]
+        return paths + ["fc"]
+
+    def torch_name(self, path) -> str:
+        return torch_name(path)
 
 
 # Stage sizes of the Bottleneck nets (whose dense stages B2 runs) and of the BasicBlock nets.
@@ -165,11 +179,13 @@ _GROUPS = {
 ARCHS = tuple(_BASIC_CONFIGS) + tuple(_CONFIGS)
 
 
-def create_resnet(arch: str, num_classes: int = 1000) -> ResNet:
+def create_resnet(arch: str, num_classes: int = 1000, in_channels: int = 3) -> ResNet:
     if arch in _BASIC_CONFIGS:
-        return ResNet(_BASIC_CONFIGS[arch], num_classes=num_classes, block=BasicBlock)
+        return ResNet(_BASIC_CONFIGS[arch], num_classes=num_classes, block=BasicBlock,
+                      in_channels=in_channels)
     groups, base_width = _GROUPS.get(arch, (1, 64))
-    return ResNet(_CONFIGS[arch], num_classes=num_classes, groups=groups, base_width=base_width)
+    return ResNet(_CONFIGS[arch], num_classes=num_classes, groups=groups, base_width=base_width,
+                  in_channels=in_channels)
 
 
 def _array(t) -> np.ndarray:

@@ -3,8 +3,10 @@
 The image, its segment map and the folded model live on the device. Each
 chunk of up to ``mask_batch`` masks runs three steps in order on the current
 stream, with no synchronisation: the masked batch is built in
-``compute_dtype``; the model runs (the stride-1 blocks of a Bottleneck net
-through B2, ``ops.bottleneck_chain``); f32 softmax/argmax give survived,
+``compute_dtype``; the model's inference plan runs (``models.inference_plan``:
+for an ImageNet ResNet the folded net, whose stride-1 Bottleneck blocks run
+through B2, ``ops.bottleneck_chain``; for every other arch the eval-mode
+module in ``compute_dtype``); f32 softmax/argmax give survived,
 preds, prob_target and prob_max. :meth:`SaliencyEngine.collect` then makes
 one device-to-host copy of all chunks' outcomes.
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from network_interpretation_imagenet_tpu_torch.device import resolve_device
-from network_interpretation_imagenet_tpu_torch.models import FoldedResNet, ModelBundle
+from network_interpretation_imagenet_tpu_torch.models import ModelBundle, inference_plan
 from network_interpretation_imagenet_tpu_torch.ops import masking
 from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
 
@@ -73,7 +75,7 @@ class SaliencyEngine:
     engine computes in full f32. ``variables`` is the state dict on the
     engine's device (f32), which the attribution methods take with
     ``bundle.logits`` (the differentiable path) or :meth:`folded_logits`;
-    ``model`` is its folded plan."""
+    ``model`` is its inference plan (``models.inference_plan``)."""
 
     def __init__(self, bundle: ModelBundle, state_dict, mask_batch: int = 256,
                  compute_dtype: torch.dtype = None, device=None) -> None:
@@ -84,8 +86,7 @@ class SaliencyEngine:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.variables = {k: torch.as_tensor(v).to(self.device) for k, v in state_dict.items()}
-        self.model = FoldedResNet(self.variables, bundle.module.stage_sizes,
-                                  self.compute_dtype, self.device)
+        self.model = inference_plan(bundle, self.variables, self.compute_dtype, self.device)
         # bo_pipeline.fused_runner's runners (and their CUDA graphs), by static config.
         self.fused_runners: dict = {}
 
@@ -99,9 +100,9 @@ class SaliencyEngine:
     @torch.inference_mode()
     def folded_logits(self, variables, images: torch.Tensor) -> torch.Tensor:
         """The masked forwards' ``logits_fn(variables, images)``: ``images``
-        (NHWC, cast to the compute dtype) through :attr:`model` -> f32 logits,
-        with B2 on the card. No gradient. ``variables`` must be this engine's
-        own, the weights its plan was folded from."""
+        (NHWC, cast to the compute dtype) through :attr:`model` -> f32 logits
+        (B2 on the card for an ImageNet ResNet). No gradient. ``variables``
+        must be this engine's own, the weights its plan was built from."""
         if variables is not self.variables:
             raise ValueError("folded_logits runs the engine's own weights: pass engine.variables")
         return self.model(images.to(self.compute_dtype).contiguous())

@@ -15,13 +15,16 @@ as f32 tensors there.
   are one backward of the summed target logits.
 - The mask-batched methods (``occlusion_map``, ``rise_map``) take
   ``logits_fn`` for their masked forwards in ``compute_dtype``, normally
-  ``engine.folded_logits``: the folded net, B2 on the card. ``scorecam``
-  takes it as ``logits_fn=`` (default ``bundle.logits``, the plain module, as
-  the JAX package's Score-CAM applies its flax module).
+  ``engine.folded_logits``: the engine's plan (for an ImageNet ResNet the
+  folded net, B2 on the card). ``scorecam`` takes it as ``logits_fn=``
+  (default ``bundle.logits``, the plain module, as the JAX package's
+  Score-CAM applies its flax module).
 - ``gradcam`` and ``scorecam`` find their layer by forward hooks on the
   plain module's submodules, named by the flax paths of the JAX package
-  (``layer4_2``, ``layer4_2/conv3``, ``layer4_0/downsample_conv``, ...), so
-  ``--gradcam-layer`` takes the same strings in both packages. Grad-CAM's
+  (``layer4_2``, ``layer4_2/conv3``, ``Mixed_7c/branch_pool/bn``,
+  ``features_18/0``, ...: each module's ``flax_paths()``, mapped by its
+  ``torch_name``), so ``--gradcam-layer`` takes the same strings in both
+  packages and the default layer is the same for every arch. Grad-CAM's
   gradient is taken w.r.t. a zero ``delta`` added to the hooked output.
 
 Random draws (SmoothGrad's noise, RISE's cells and offsets) come from a CPU
@@ -42,9 +45,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from network_interpretation_imagenet_tpu_torch.models import Bottleneck
 from network_interpretation_imagenet_tpu_torch.ops.resize import resize_bilinear
-from network_interpretation_imagenet_tpu_torch.utils.convert import torch_name
 
 
 def variables_device(variables) -> torch.device:
@@ -285,34 +286,20 @@ def rise_map(logits_fn: Callable, variables: Any, image, target: int, num_masks:
 # --- CAMs ---------------------------------------------------------------------------
 
 
-def _flax_paths(module) -> list:
-    """The JAX model's module paths (``conv1``, ``bn1``, ``layer1_0``,
-    ``layer1_0/conv1``, ..., ``layer1_0/downsample_bn``): every module whose
-    output is a feature map, as ``capture_intermediates`` records them."""
-    paths = ["conv1", "bn1"]
-    for s, n in enumerate(module.stage_sizes, start=1):
-        for b in range(n):
-            block = getattr(module, f"layer{s}")[b]
-            p = f"layer{s}_{b}"
-            paths.append(p)
-            for c in range(1, (3 if isinstance(block, Bottleneck) else 2) + 1):
-                paths += [f"{p}/conv{c}", f"{p}/bn{c}"]
-            if block.downsample is not None:
-                paths += [f"{p}/downsample_conv", f"{p}/downsample_bn"]
-    return paths
-
-
 def _submodule(bundle, path: str) -> torch.nn.Module:
-    return bundle.module.get_submodule(torch_name(tuple(path.split("/"))))
+    return bundle.module.get_submodule(bundle.module.torch_name(path))
 
 
 def _capture(bundle, variables, image: torch.Tensor) -> dict:
-    """One forward of ``image`` with a hook on every module of
-    :func:`_flax_paths`: {path: NHWC f32 [1, h, w, c] activation}."""
+    """One forward of ``image`` with a hook on every module of the JAX
+    model's (``bundle.module.flax_paths()``: every module whose output
+    ``capture_intermediates`` records there): {path: NHWC f32 [1, h, w, c]
+    activation, or the output as it is where it is not a feature map}."""
     acts, hooks = {}, []
-    for path in _flax_paths(bundle.module):
+    for path in bundle.module.flax_paths():
         def hook(mod, inp, out, path=path):
-            acts[path] = out.detach().permute(0, 2, 3, 1).float()
+            out = out.detach().float()
+            acts[path] = out.permute(0, 2, 3, 1) if out.dim() == 4 else out
         hooks.append(_submodule(bundle, path).register_forward_hook(hook))
     try:
         with torch.no_grad():

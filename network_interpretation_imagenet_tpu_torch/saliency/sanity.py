@@ -5,8 +5,9 @@ Cascading parameter randomization: re-randomize the classifier one top-level
 module at a time, output side first, and measure how far each method's
 heatmap moves (Spearman rank correlation of |heat| against the trained
 model's map). Modules are named as the JAX package names them (``fc``,
-``layer4_2``, ..., ``bn1``, ``conv1``); a module's state-dict entries are
-every key under its torchvision prefix (``layer4.2.``), BatchNorm running
+``layer4_2``, ..., ``bn1``, ``conv1``; for the zoo ``fc2``, ``conv12``, ...,
+``Mixed_7c``); a module's state-dict entries are every key of the torch
+modules that compute it (:func:`module_names`), BatchNorm running
 statistics included, so a randomized BatchNorm keeps no trained statistics.
 """
 
@@ -44,31 +45,33 @@ def fresh_random_variables(bundle, seed: int = 0) -> dict:
     return bundle.init(int(seed) + 7919)
 
 
-def module_of(key: str) -> str:
-    """The JAX package's top-level module name of a state-dict key:
-    ``layer4.2.conv1.weight`` -> ``layer4_2``, ``fc.bias`` -> ``fc``."""
-    parts = key.split(".")
-    return f"{parts[0]}_{parts[1]}" if parts[0].startswith("layer") else parts[0]
+def module_names(module) -> dict:
+    """{state-dict key: the JAX package's top-level module name} for every
+    key of ``module`` that the JAX model has (``layer4.2.conv1.weight`` ->
+    ``layer4_2``, VGG's ``features.3.weight`` -> ``conv1``, ``fc.bias`` ->
+    ``fc``), from the module's ``flax_paths`` and ``torch_name``. Keys of
+    train-only heads the JAX model lacks (Inception's ``AuxLogits``) have
+    none."""
+    owner = {module.torch_name(p): p.split("/")[0] for p in module.flax_paths()}
+    return {k: owner[k.rpartition(".")[0]] for k in module.state_dict()
+            if k.rpartition(".")[0] in owner}
 
 
 def randomization_stages(bundle) -> list:
     """Top-level module names, output side first: the module definition
     order (``conv1``, ``bn1``, ``layer1_0``, ..., ``fc``) reversed."""
-    names = []
-    for key in bundle.module.state_dict():
-        name = module_of(key)
-        if name not in names:
-            names.append(name)
-    return list(reversed(names))
+    return list(reversed(list(dict.fromkeys(module_names(bundle.module).values()))))
 
 
-def randomize_modules(variables: dict, random_variables: dict, modules: Sequence[str]) -> dict:
-    """``variables`` with every entry of ``modules`` taken from
-    ``random_variables`` (moved to its tensor's device), weights and
-    BatchNorm statistics alike."""
+def randomize_modules(variables: dict, random_variables: dict, modules: Sequence[str],
+                      bundle) -> dict:
+    """``variables`` with every entry of ``modules`` (``bundle``'s top-level
+    names) taken from ``random_variables`` (moved to its tensor's device),
+    weights and BatchNorm statistics alike."""
     modules = set(modules)
+    names = module_names(bundle.module)
     return {k: (random_variables[k].to(v.device, v.dtype)
-                if module_of(k) in modules and k in random_variables else v)
+                if names.get(k) in modules and k in random_variables else v)
             for k, v in variables.items()}
 
 
@@ -87,6 +90,6 @@ def cascading_randomization(heatmap_fn: Callable[[Any], np.ndarray], bundle, var
     rows, done = [], []
     for stage in stages:
         done.append(stage)
-        heat = _host(heatmap_fn(randomize_modules(variables, random_variables, done)))
+        heat = _host(heatmap_fn(randomize_modules(variables, random_variables, done, bundle)))
         rows.append((stage, spearman_abs(base, heat)))
     return {"stages": rows}

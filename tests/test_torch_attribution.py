@@ -30,7 +30,12 @@ from network_interpretation_imagenet_tpu.saliency import eval_metrics as jeval
 from network_interpretation_imagenet_tpu.saliency import gradient as jg
 from network_interpretation_imagenet_tpu.saliency.engine import SaliencyEngine as JaxEngine
 from network_interpretation_imagenet_tpu_torch.data.imagenet_loc import ImagenetLocalizationDataset
-from network_interpretation_imagenet_tpu_torch.models import BasicBlock, ModelBundle, ResNet
+from network_interpretation_imagenet_tpu_torch.models import (
+    BasicBlock,
+    Bottleneck,
+    ModelBundle,
+    ResNet,
+)
 from network_interpretation_imagenet_tpu_torch.ops.resize import resize_bilinear
 from network_interpretation_imagenet_tpu_torch.saliency import eval_metrics
 from network_interpretation_imagenet_tpu_torch.saliency import gradient as g
@@ -97,7 +102,7 @@ def _models(block):
     """(port bundle, state dict, JAX bundle, flax variables) sharing weights."""
     basic = block == "basic"
     bundle = ModelBundle("r", ResNet(STAGES, num_classes=10,
-                                     block=BasicBlock if basic else g.Bottleneck), 64, 3, 10)
+                                     block=BasicBlock if basic else Bottleneck), 64, 3, 10)
     variables = flax_resnet_variables(bundle.init(3), STAGES)
     randomize_bn(variables["params"], variables["batch_stats"], np.random.RandomState(4))
     sd = {k: torch.from_numpy(np.asarray(v)) for k, v in _state_dict(variables, bundle).items()}

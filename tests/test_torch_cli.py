@@ -21,6 +21,7 @@ from network_interpretation_imagenet_tpu_torch.data import labels
 from network_interpretation_imagenet_tpu_torch.data.imagenet_loc import ImagenetLocalizationDataset
 from network_interpretation_imagenet_tpu_torch.ops import colormap
 from network_interpretation_imagenet_tpu_torch.saliency import viz
+from network_interpretation_imagenet_tpu_torch.utils import convert
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "imagenet_loc")
 ARGS = ["--data", FIXTURE, "--arch", "resnet50", "--dtype", "float32", "--device", "cpu",
@@ -82,13 +83,19 @@ def test_explain_runs_without_writing(tmp_path):
 
 
 def test_ckpt_reads_torch_state_dicts_only(tmp_path):
+    """A torch checkpoint's ``state_dict`` entry loads with DataParallel's
+    ``module.`` prefix stripped; a ``--ckpt`` that is neither a torch file,
+    an artifact nor a checkpoint directory raises (the other formats are
+    held in tests/test_torch_weights.py)."""
     sd = {"conv1.weight": torch.ones(2, 3), "fc.bias": torch.zeros(2)}
     path = str(tmp_path / "ckpt.pth.tar")
     torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}, "epoch": 3}, path)
-    got = common._state_dict(path)
+    got = convert.load_state_dict(path)
     assert set(got) == set(sd) and all(torch.equal(got[k], sd[k]) for k in sd)
-    with pytest.raises(ValueError, match="A15"):
-        common._state_dict(str(tmp_path / "weights.msgpack"))
+    args = cli.parse_args(["--synthetic", "--arch", "resnet18", "--device", "cpu",
+                           "--ckpt", str(tmp_path / "weights.msgpack")])
+    with pytest.raises(FileNotFoundError):
+        common.build_engine(args)
 
 
 def test_dataset_and_figures_match_jax():

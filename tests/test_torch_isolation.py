@@ -1,14 +1,17 @@
-"""The port stands alone: it imports neither jax nor the JAX package.
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+flax or msgpack, which the weights artifact's format comes from).
 
-A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
-``network_interpretation_imagenet_tpu`` imports every module of the port
+A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``,
+``network_interpretation_imagenet_tpu``, ``flax`` and ``msgpack`` imports
+every module of the port
 and runs the CPU slice end to end (segment, predict, masked evals,
 heatmap, localization score), one small BO explanation, the knockout,
 threshold-search and multi-image paths, both GP surrogates, a
 checkpoint round trip, one attribution of each kind (an input
 gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), and the
 val-set sweeps (window with a journal, BO, attribution) and the sweep CLI,
-in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
+a zoo net's masked evals, a weights artifact written and read back, and
+the MNIST generator from it, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
 import pkgutil
@@ -23,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "network_interpretation_imagenet_tpu")
+BLOCKED = ("jax", "jaxlib", "network_interpretation_imagenet_tpu", "flax", "msgpack")
 
 class _Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -111,6 +114,22 @@ assert [r.images_explained for r in (swept, bo_swept, attr_swept)] == [2, 2, 2]
 sweep_cli.main(["--synthetic", "--num-images", "1", "--num_mask_samples", "4",
                 "--mask-batch", "4", "--dtype", "float32", "--device", "cpu",
                 "--out", tmp + "/cli"])
+from network_interpretation_imagenet_tpu_torch.models import create_model
+from network_interpretation_imagenet_tpu_torch.utils import convert
+from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_mnist as gen
+zoo = create_model("squeezenet1_1", num_classes=10)
+zoo_engine = SaliencyEngine(zoo, zoo.init(0), mask_batch=8, compute_dtype=torch.float32,
+                            device="cpu")
+assert len(zoo_engine.eval_window_masks(image, segments, out.firsts[:5], out.width, 1).preds) == 5
+mnist = create_model("mnist_cnn", "mnist")
+sd = mnist.init(0)
+convert.save_weights_artifact(convert.jax_variables(sd, mnist.module), tmp + "/w",
+                              meta={"arch": "mnist_cnn"})
+back = convert.from_jax(convert.load_weights_artifact(tmp + "/w")[0], mnist.module)
+assert all(torch.equal(back[k], sd[k]) for k in sd)
+payload, _ = gen.compute(gen.parse_args(["--synthetic", "--ckpt", tmp + "/w", "--device", "cpu",
+                                         "--num_mask_samples", "8", "--out", tmp + "/g"]))
+assert payload["num_mask_samples"] == 8
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -142,5 +161,9 @@ def test_no_jax_import_in_port_sources():
                  "saliency.sanity", "segment.slic", "ops.resize", "cli.occlusion_saliency",
                  "cli.compare_saliency_methods", "cli.attribution_sanity", "saliency.sweep",
                  "saliency.journal", "cli.saliency_sweep", "data.prefetch", "utils.logging",
-                 "utils.meters"):
+                 "utils.meters", "models.mnist_cnn", "models.resnet_cifar", "models.densenet",
+                 "models.vgg", "models.alexnet", "models.squeezenet", "models.inception",
+                 "models.googlenet", "models.mobilenet", "models.shufflenet", "models.mnasnet",
+                 "data.loaders", "utils.convert", "cli.convert_checkpoint",
+                 "cli.generate_gp_training_data_mnist", "cli.generate_gp_training_data_cifar"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

@@ -229,7 +229,7 @@ def test_randomization_stages_and_splicing_match_jax(block):
     assert all(torch.equal(rand[k], bundle.init(4 + 7919)[k]) for k in rand)
     jrand = flax_resnet_variables(rand, (1, 1, 1, 1))
     done = ["fc", "layer4_0", "layer3_0"]
-    got = sanity.randomize_modules(sd, rand, done)
+    got = sanity.randomize_modules(sd, rand, done, bundle)
     want = resnet_from_jax(jsanity.randomize_modules(v, jrand, done))
     for k, val in want.items():
         np.testing.assert_array_equal(got[k].numpy(), val.numpy(), err_msg=k)
