@@ -13,7 +13,9 @@ kernel against its plain PyTorch version on the card:
      parallel) into the package's _build/;
   3. B1 masked_batch vs its plain version, bf16 and f32, bit-exact, at the
      random-window chunk (K=256), the BO loop's K = 1 and 3 with the width
-     read on the device, and into an out= slice of a larger buffer; and at
+     read on the device, [serve]'s buckets K = 32 and 1,024 (groups of 4,
+     and of 64 with the table of starts full), and into an out= slice of a
+     larger buffer; and at
      the new archs' shapes, 28x28x1 (MNIST: the generic C=1 instance),
      32x32x3 (CIFAR) and 299x299x3 (Inception-v3: H*W*C not a multiple of
      8, so scalar loads at row ends and scalar stores), each at K = 256
@@ -24,7 +26,8 @@ kernel against its plain PyTorch version on the card:
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
      N=8 loop's), 32 and 256, 4 and 12 (the sweep's flushes of 4 images: a
      predict or a BO iteration, the BO pre-samples) and 100 (the window
-     CLIs' default chunk); f32 at B = 1, 2 and 256 (the f32 sweep's
+     CLIs' default chunk) and 1024 ([serve]'s /eval_windows bucket); f32 at
+     B = 1, 2, 32 ([serve]'s f32 artifact) and 256 (the f32 sweep's
      predicts and chunk) at all four shapes and at B=4 at two; per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
      block and a bf16 cuDNN yardstick; at the BO's batches the same
@@ -140,7 +143,41 @@ kernel against its plain PyTorch version on the card:
  23. [gen mnist], [gen cifar]: the two generators' gp-data compute (1,000
      knockouts, M = 1 and 5; B1 0, B2 0) on their own engines, from a
      weights artifact the port wrote (read back bit for bit), with their
-     result JSON.
+     result JSON;
+ 24. [serve] (run before [B2 graphs]): the serving stack. The main engine
+     (ResNet-101 224 bf16) exported with window buckets 1024, 256 and 32,
+     knockout_m 5, the attribution methods gradient, integrated, gradcam,
+     occlusion, rise and xrai (image batch 4) and a BO artifact (candidate
+     buckets 32 and 64, image batch 4) in one directory, its weights read
+     back bit for bit; a ResNet-50 f32 artifact at bucket 32 beside it. Both
+     behind one make_http_server registry on 127.0.0.1 port 0, warmed up
+     (kernel builds, every BO shape captured), every endpoint driven through
+     SaliencyClient with its launches held: /eval_windows on 1,000 starts
+     (B1 1, B2 4; equal to the server's own call, its logits within
+     SERVE_LOGIT_TOL x max |logit| of the engine's plan in chunks of 256;
+     every B1 launch of these checks, bf16 K = 1,024, 256 and 32 and f32
+     K = 32, kept as served and held bit for bit against its plain version
+     in bf16 and f32), window /explain
+     (B1 2, B2 8) and knockout /explain (0 / 4) and /eval_knockouts (0 / 4)
+     equal to the in-process path, BO /explain (a replay, 0 / 0; equal to
+     bo_window_saliency) and /explain_batch N=4 (0 / 0; equal to
+     explain_many, scores held against the engine's at the same starts)
+     with B1 and B2 in each replay's profiler trace, /attribute for each
+     method (occlusion 0 / 16 and rise 0 / 32 exactly equal to the library
+     call on the engine, the others within ATTR_B2_TOL) and
+     /attribute_batch (0 / 0; equal to attribute_many; each bf16 row equal
+     to its image's batch of 4 repeats, within SERVE_BF16_ATTR_TOL of the
+     batch-1 map, and at least SERVE_BF16_ATTR_RHO in Spearman |rank| to it
+     and to the f32 map); the f32 artifact's labels and heatmaps
+     exactly the library engine's (B1 3, B2 12) and its /attribute_batch
+     within SERVE_F32_ATTR_TOL of per-image maps; p50 per endpoint as the
+     client's, the service call's on the same body without HTTP and the
+     device call's; three device calls from a fresh thread per call
+     against the device thread; /metrics p50 and device_call_ms, and peak
+     memory at bucket 1024; 8 concurrent clients on a cold
+     dynamic-batch server (captures while serving), every response its
+     serial one; cli.export_serving --bo and cli.serve as subprocesses on
+     the MNIST CNN: one query, SIGTERM, exit 0.
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -170,8 +207,10 @@ CLI_MASKS = 100              # the CLIs' default --num_mask_samples: one chunk o
 # B2's block-by-block batches: the BO loops', 32, the main path's chunk, and
 # every batch the sweep's lanes give it (a flush's predict and BO iteration
 # at SWEEP_BATCH, its BO pre-samples at 3 * SWEEP_BATCH, the CLIs' chunk).
-B2_BATCHES = (1, 3, SWEEP_BATCH, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MASK_BATCH)
-B2_F32_BATCHES = (1, 2, MASK_BATCH)   # the f32 sweep lane's: predicts at 1 and 2, its chunk
+B2_BATCHES = (1, 3, SWEEP_BATCH, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MASK_BATCH,
+              1024)          # [serve]'s /eval_windows bucket
+# The f32 sweep lane's: predicts at 1 and 2, its chunk; [serve]'s f32 artifact's bucket, 32.
+B2_F32_BATCHES = (1, 2, 32, MASK_BATCH)
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
 BO_IMAGES = 8                # bo_window_saliency_multi's N
@@ -184,6 +223,21 @@ SWEEP_IMAGES = 8             # the [sweep] phase's synthetic images
 # GP card vs CPU on this script's inputs. Errors read on an H100 with full
 # f32 products: Kronecker 3.1e-5, -ELBO 1.5e-4, p(y=1) 5.9e-4; with the
 # variational fit's backward left to TF32, p(y=1) 1.6e-3 and -ELBO 2.1e-4.
+SERVE_BUCKETS = (1024, 256, 32)   # [serve]: the engine artifact's window buckets (defaults)
+SERVE_KNOCKOUT_M = 5
+SERVE_ATTR = ("gradient", "integrated", "gradcam", "occlusion", "rise", "xrai")
+SERVE_ATTR_B2 = {"occlusion": 16, "rise": 32}   # B2 launches per served call (4 per forward)
+SERVE_N = 4                  # the attribution and BO artifacts' image batch
+SERVE_BO_BUCKETS = (32, 64)
+SERVE_F32_BUCKET = 32        # the f32 ResNet-50 artifact's one bucket
+SERVE_EVAL_K = 1000          # /eval_windows starts: one call at bucket 1024
+SERVE_B1_KS = (32, 1024)     # the served B1 launches' K beyond the engine's chunk of 256
+SERVE_LOGIT_TOL = 1e-5       # bucket-1024 logits vs chunks of 256: x max |logit| (reads 7.3e-7)
+SERVE_REQS = 20              # warm requests per endpoint for a p50
+SERVE_CLIENTS = 8
+SERVE_F32_ATTR_TOL = 1e-3    # an f32 gradient map at batch 4 vs batch 1: x max |map|
+SERVE_BF16_ATTR_TOL = 0.25   # a bf16 gradient map at batch 4 vs batch 1: x max |map| (reads 0.14-0.16)
+SERVE_BF16_ATTR_RHO = 0.9    # its Spearman |rank| with batch 1 (reads 0.962) and f32 (0.921)
 GP_TOL = 1e-4                # Kronecker GP: relative to the tensor's scale
 VGP_LOSS_TOL = 5e-4          # variational GP's -ELBO history: relative
 VGP_PROB_TOL = 1e-3          # its p(y=1): absolute
@@ -2140,6 +2194,543 @@ def gen_small_phase(smi, by_path):
             + f"; launches {json.dumps(by_path[f'gen_{name}'])}")
 
 
+def serve_phase(engine, image, segments, target, smi, by_path):
+    """[serve]: the serving stack on the card (see the module docstring, 24),
+    its artifacts in a temporary directory removed afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="serve_")
+    try:
+        serve_checks(tmp, engine, image, segments, target, smi, by_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_checks(tmp, engine, image, segments, target, smi, by_path):
+    import os
+    import re
+    import signal
+    import threading
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch import serving
+    from network_interpretation_imagenet_tpu_torch.config import BOConfig
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency import gradient as g
+    from network_interpretation_imagenet_tpu_torch.saliency import xrai
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.sanity import spearman_abs
+    from network_interpretation_imagenet_tpu_torch.serving_client import (
+        SaliencyClient,
+        _array_fields,
+    )
+    from network_interpretation_imagenet_tpu_torch.serving_http import make_http_server
+    from network_interpretation_imagenet_tpu_torch.utils.convert import from_jax, msgpack_loads
+
+    t_phase = time.perf_counter()
+    d101, d50 = f"{tmp}/resnet101", f"{tmp}/resnet50"
+    s = int(segments.max()) + 1
+    width = int(0.4 * s)
+
+    # 1. Export ResNet-101 bf16 (window, knockout, attribution and BO in one
+    # directory) and ResNet-50 f32 at bucket 32; the weights read back bit for bit.
+    t0 = time.perf_counter()
+    serving.export_engine(engine, d101, batch_sizes=SERVE_BUCKETS, knockout_m=SERVE_KNOCKOUT_M,
+                          attribution=SERVE_ATTR, attribution_batches=(SERVE_N,))
+    bo_manifest = serving.export_bo_engine(engine, d101, candidate_buckets=SERVE_BO_BUCKETS,
+                                           image_batches=(SERVE_N,), include_weights=False)
+    export_s = time.perf_counter() - t0
+    with open(f"{d101}/{serving.WEIGHTS}", "rb") as f:
+        blob = f.read()
+    back = from_jax(msgpack_loads(blob), engine.bundle.module)
+    if not all(torch.equal(back[k], v.cpu()) for k, v in engine.variables.items()
+               if not k.endswith("num_batches_tracked")):
+        raise AssertionError("[serve] variables.msgpack does not read back bit for bit")
+    b50 = create_model("resnet50", "imagenet", dtype=torch.float32)
+    e50 = SaliencyEngine(b50, b50.init(SEED), mask_batch=SERVE_F32_BUCKET,
+                         compute_dtype=torch.float32, device="cuda")
+    serving.export_engine(e50, d50, batch_sizes=(SERVE_F32_BUCKET,), attribution=("gradient",),
+                          attribution_batches=(SERVE_N,))
+
+    # 2. Load both behind one server (a registry: /m/r50/... is the f32 one) and warm up.
+    httpd = make_http_server({"r101": d101, "r50": d50}, "127.0.0.1", 0, dynamic_batch=True,
+                             device="cuda")
+    t0 = time.perf_counter()
+    programs = sum(svc.warmup() for svc in httpd.services.values())
+    warm_s = time.perf_counter() - t0
+    log(f"[serve] {smi}: exported ResNet-101 bf16 (buckets {list(SERVE_BUCKETS)}, knockout_m "
+        f"{SERVE_KNOCKOUT_M}, attribution {list(SERVE_ATTR)} with image batch {SERVE_N}, BO "
+        f"candidate buckets {bo_manifest['candidate_buckets']} and image batch {SERVE_N}) in "
+        f"{export_s:.2f} s, {len(blob)} bytes of weights read back bit for bit; warmup of "
+        f"{programs} programs (both models) in {warm_s:.2f} s")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    host, port = httpd.server_address[:2]
+    client = SaliencyClient(host, port)
+    svc = httpd.services["r101"]
+    srv, bo = svc.engine_server, svc.bo_server
+
+    def heat_of(resp):
+        return np.asarray(resp["heatmap"], np.float32)
+
+    # Every served B1 launch of the checks below keeps its inputs and output,
+    # to be held against the plain version: the buckets' padded starts on the
+    # synthetic image's own segments, as the service builds them.
+    served_b1, real_b1 = [], serving.masked_batch
+
+    def recording_b1(image_t, seg_t, firsts_t, width_, dt=torch.bfloat16, out=None):
+        got = real_b1(image_t, seg_t, firsts_t, width_, dt, out=out)
+        served_b1.append((image_t, seg_t, firsts_t.clone(), width_, dt, got.clone()))
+        return got
+
+    serving.masked_batch = recording_b1
+    try:
+        # 3. Every endpoint through the client, held against the in-process calls.
+        firsts = masking.sample_window_starts_host(SEED, SERVE_EVAL_K, s, width)
+        ev = counted(by_path, "serve_eval_windows",
+                     lambda: client.eval_windows(image, segments, firsts, width, target), 1, 4)
+        res = srv.eval_window_masks(image, segments, firsts, width, target)
+        if not (ev["preds"] == res.preds.tolist() and ev["prob_target"] ==
+                res.prob_target.tolist() and ev["survived"] == res.survived.tolist()):
+            raise AssertionError("[serve] /eval_windows differs from the server's own call")
+        with torch.inference_mode():    # served bf16 logits vs the library's plan in its chunks
+            got = torch.from_numpy(srv.logits_for_windows(image, segments, firsts, width))
+            img_t = torch.from_numpy(image).cuda()
+            seg_t = torch.from_numpy(segments).cuda()
+            want = torch.cat([engine.model(masked_batch(
+                img_t, seg_t, torch.from_numpy(firsts[o:o + MASK_BATCH]).cuda(), width,
+                torch.bfloat16)).float().cpu() for o in range(0, len(firsts), MASK_BATCH)])
+        logit_err = (got - want).abs().max().item()
+        logit_scale = want.abs().max().item()
+        lib = engine.eval_window_masks(image, segments, firsts, width, target)
+        if not logit_err <= SERVE_LOGIT_TOL * logit_scale:
+            raise AssertionError(f"[serve] bucket-1024 logits vs the library's: {logit_err}")
+        log(f"[serve] /eval_windows {SERVE_EVAL_K} starts (bucket 1024): equal to the server's "
+            f"own call; logits vs the engine's plan in chunks of {MASK_BATCH}: max err "
+            f"{logit_err:.4g} (max |logit| {logit_scale:.4g}, tol {SERVE_LOGIT_TOL}x); preds "
+            "agree with "
+            f"engine.eval_window_masks on {float(np.mean(lib.preds == res.preds)):.4f}; launches "
+            + json.dumps(by_path["serve_eval_windows"]))
+
+        w = counted(by_path, "serve_explain_window",
+                    lambda: client.explain(image, segments=segments, mode="window", seed=SEED),
+                    2, 8)
+        w_firsts = masking.sample_window_starts_host(SEED, 100, s, width)
+        w_target = int(srv.logits_for_windows(image, segments, np.zeros(1, np.int32), s)[0]
+                       .argmax())   # the server's inference: the full-width window, bucket 32
+        w_res = srv.eval_window_masks(image, segments, w_firsts, width, w_target)
+        w_heat = aggregate.summed_superpixel_labels_np(segments, w_firsts, width, w_res.survived)
+        lib_res = engine.eval_window_masks(image, segments, w_firsts, width, w_target)
+        if not (np.array_equal(heat_of(w), w_heat) and w["target"] == w_target):
+            raise AssertionError("[serve] window /explain differs from the in-process path")
+        ko = counted(by_path, "serve_explain_knockout",
+                     lambda: client.explain(image, segments=segments, mode="knockout",
+                                            seed=SEED, target=target,
+                                            num_knockout=SERVE_KNOCKOUT_M), 0, 4)
+        ids = masking.sample_knockout_ids_host(SEED, 100, SERVE_KNOCKOUT_M, s)
+        ko_res = srv.eval_knockout_masks(image, segments, ids, target)
+        if not np.array_equal(heat_of(ko), aggregate.summed_knockout_labels_np(
+                segments, ids, ko_res.survived)):
+            raise AssertionError("[serve] knockout /explain differs from the in-process path")
+        kv = counted(by_path, "serve_eval_knockouts",
+                     lambda: client.eval_knockouts(image, segments, ids, target), 0, 4)
+        if kv["preds"] != ko_res.preds.tolist():
+            raise AssertionError("[serve] /eval_knockouts differs from the server's own call")
+        log(f"[serve] window /explain (target inferred, 100 masks) and knockout /explain "
+            f"(M={SERVE_KNOCKOUT_M}) equal the in-process path (inferred target {w_target}, "
+            f"predict_one's {target}); window labels vs "
+            f"engine.eval_window_masks agree on {float(np.mean(lib_res.survived == w_res.survived)):.4f}; "
+            "launches " + json.dumps({k: by_path[k] for k in (
+                "serve_explain_window", "serve_explain_knockout", "serve_eval_knockouts")}))
+
+        b = counted(by_path, "serve_explain_bo",
+                    lambda: client.explain(image, segments=segments, seed=SEED, target=target),
+                    0, 0)
+        out, tr = bo.explain(image, segments, seed=SEED, target=target)
+        lib_out, lib_tr = bo_window_saliency(engine, image, segments, BOConfig(), seed=SEED,
+                                             target=target)
+        yp_err = float(np.abs(tr.yp - lib_tr.yp).max())
+        if not (b["xp"] == tr.xp.tolist() and np.array_equal(heat_of(b), out.heatmap)
+                and np.array_equal(tr.xp, lib_tr.xp) and yp_err <= 1e-6):
+            raise AssertionError(f"[serve] BO /explain {b['xp']} vs in-process {tr.xp.tolist()} "
+                                 f"vs bo_window_saliency {lib_tr.xp.tolist()}")
+        run = bo.runners[(1, int(bo_manifest["candidate_buckets"][0]))]
+        (graph, _, _), = (e for e in run.graphs.values() if e is not None)
+        _, _, _, groups = replay_trace(graph)
+        images = [image] + [image * (0.5 + 0.1 * i) for i in range(1, SERVE_N)]
+        eb = counted(by_path, "serve_explain_batch",
+                     lambda: client.explain_batch(np.stack(images), segments=np.stack(
+                         [segments] * SERVE_N), seeds=list(range(SERVE_N)),
+                         targets=[target] * SERVE_N), 0, 0)
+        many, calls = bo.explain_many(images, [segments] * SERVE_N,
+                                      per_image_seeds=list(range(SERVE_N)),
+                                      targets=[target] * SERVE_N)
+        if calls != 1 or [r["xp"] for r in eb] != [t.xp.tolist() for _, t in many]:
+            raise AssertionError("[serve] /explain_batch differs from explain_many")
+        agree, score = 0, 0.0
+        for i, (o, t) in enumerate(many):
+            agree += t.xp.tolist() == bo.explain(images[i], segments, seed=i,
+                                                 target=target)[1].xp.tolist()
+            r = engine.eval_window_masks(images[i], segments, t.xp, o.width, target)
+            score = max(score, float(np.abs(r.prob_target - t.yp).max()))
+            if not np.array_equal(r.survived, t.survived):
+                raise AssertionError(f"[serve] /explain_batch image {i}: labels vs the engine's")
+        if score > BO_SCORE_TOL:
+            raise AssertionError(f"[serve] /explain_batch scores vs the engine's: {score}")
+        (bgraph, _, _), = (e for e in bo.runners[(SERVE_N, int(bo_manifest["candidate_buckets"][0]))]
+                           .graphs.values() if e is not None)
+        _, _, _, bgroups = replay_trace(bgraph)
+        log(f"[serve] BO /explain (replay) equals the in-process call and bo_window_saliency "
+            f"(yp err {yp_err:.3g}); its replay trace by kernel " + json.dumps(
+                {k: round(v, 3) for k, v in groups.items()})
+            + f"; /explain_batch N={SERVE_N} equals explain_many (1 device call), "
+            f"{agree}/{SERVE_N} traces equal to single explains, scores vs the engine on the "
+            f"same starts max err {score:.3g}; its replay trace " + json.dumps(
+                {k: round(v, 3) for k, v in bgroups.items()}) + "; launches "
+            + json.dumps({k: by_path[k] for k in ("serve_explain_bo", "serve_explain_batch")}))
+
+        cfg, bl, v = srv.attribution_config, engine.bundle.logits, engine.variables
+
+        def library_map(method):
+            """The library's call on the main engine with the artifact's settings."""
+            if method == "gradient":
+                return g.input_gradient(bl, v, image, target)
+            if method == "integrated":
+                return g.integrated_gradients(bl, v, image, target, steps=cfg["ig_steps"])
+            if method == "gradcam":
+                return g.gradcam(engine.bundle, v, image, target, layer=cfg["gradcam_layer"])
+            if method == "occlusion":
+                return g.occlusion_map(engine.folded_logits, v, image, target,
+                                       patch=cfg["occ_patch"], stride=cfg["occ_stride"],
+                                       batch=cfg["mask_batch"], compute_dtype=torch.bfloat16)
+            if method == "rise":
+                return g.rise_map(engine.folded_logits, v, image, target,
+                                  num_masks=cfg["rise_masks"], grid=cfg["rise_grid"],
+                                  keep_prob=cfg["rise_keep"], batch=cfg["mask_batch"], seed=SEED,
+                                  compute_dtype=torch.bfloat16)
+            return xrai.xrai_attribution(bl, v, image, target, steps=srv.xrai_config["steps"])
+
+        attr_errs = {}
+        for method in SERVE_ATTR:
+            want_b2 = SERVE_ATTR_B2.get(method, 0)
+            a = counted(by_path, f"serve_attr_{method}",
+                        lambda: client.attribute(image, method, target=target, seed=SEED),
+                        0, want_b2)
+            lib_map = library_map(method).detach().cpu().numpy()
+            got_map = np.asarray(a["attribution"] if method == "xrai" else a["heatmap"],
+                                 np.float32)
+            err = rel_err(got_map, lib_map)
+            attr_errs[method] = err
+            exact = method in ("occlusion", "rise")
+            if not (np.isfinite(got_map).all() and (err == 0.0 if exact else
+                                                    err <= ATTR_B2_TOL)):
+                raise AssertionError(f"[serve] /attribute {method}: err {err} x max |map|")
+        ab = counted(by_path, "serve_attribute_batch",
+                     lambda: client.attribute_batch(np.stack(images), "gradient",
+                                                    targets=[target] * SERVE_N), 0, 0)
+        ab_lib, _ = srv.attribute_many(np.stack(images), [target] * SERVE_N, "gradient")
+        ab_err = max(rel_err(heat_of(r), ab_lib[i]) for i, r in enumerate(ab))
+        # Witnesses of the bf16 batch's maps, image by image: image i alone at
+        # batch 1 (other cuDNN plans), image i repeated N times (the batch's
+        # own plans: its row must equal the batch's), and the f32 map of the
+        # same weights (what both bf16 maps approximate).
+        b32 = create_model("resnet101", "imagenet", dtype=torch.float32)
+        wit = {"single": [], "same_plan": [], "single_f32": [], "batch_f32": [],
+               "rho_single": [], "rho_single_f32": [], "rho_batch_f32": []}
+        for i, r in enumerate(ab):
+            got_i = heat_of(r)
+            single = srv.attribute(images[i], target, "gradient")
+            same_plan = srv.attribute_many(np.stack([images[i]] * SERVE_N),
+                                           [target] * SERVE_N, "gradient")[0][0]
+            f32_map = g.input_gradient(b32.logits, v, images[i], target).detach().cpu().numpy()
+            for key, val in (("single", rel_err(got_i, single)),
+                             ("same_plan", rel_err(got_i, same_plan)),
+                             ("single_f32", rel_err(single, f32_map)),
+                             ("batch_f32", rel_err(got_i, f32_map)),
+                             ("rho_single", spearman_abs(got_i, single)),
+                             ("rho_single_f32", spearman_abs(single, f32_map)),
+                             ("rho_batch_f32", spearman_abs(got_i, f32_map))):
+                wit[key].append(float(val))
+        log(f"[serve] /attribute vs the library call on the engine (x max |map|; occlusion and "
+            f"rise exactly): " + json.dumps({k: float(f"{v:.3g}") for k, v in attr_errs.items()})
+            + f"; /attribute_batch N={SERVE_N} (bf16 gradient) vs attribute_many {ab_err:.3g}; "
+            "per image, max err x max |map| vs: the same image at batch 1, the same image "
+            f"repeated {SERVE_N} times, and the f32 map (batch-1 map vs f32 beside it); "
+            "Spearman |rank| batch vs batch 1, batch 1 vs f32, batch vs f32: " + json.dumps(
+                {k: [float(f"{x:.4g}") for x in xs] for k, xs in wit.items()})
+            + "; launches " + json.dumps({m: by_path[f"serve_attr_{m}"] for m in SERVE_ATTR}))
+        if not ab_err <= ATTR_B2_TOL:
+            raise AssertionError(f"[serve] /attribute_batch vs attribute_many: {ab_err}")
+        if max(wit["same_plan"]) != 0.0:
+            raise AssertionError("[serve] a bf16 /attribute_batch row differs from its image's "
+                                 f"batch at the same plans: {wit['same_plan']}")
+        # The gap to batch 1 is bf16 rounding under other cuDNN plans: the
+        # batch's maps rank pixels like the f32 map as closely as batch 1's do.
+        if not (max(wit["single"]) <= SERVE_BF16_ATTR_TOL
+                and min(wit["rho_single"] + wit["rho_batch_f32"]) >= SERVE_BF16_ATTR_RHO):
+            raise AssertionError(f"[serve] bf16 /attribute_batch vs per-image maps beyond "
+                                 f"{SERVE_BF16_ATTR_TOL}, or Spearman vs per-image or f32 "
+                                 f"maps below {SERVE_BF16_ATTR_RHO}: {wit}")
+
+        # The f32 artifact (ResNet-50, bucket 32) through the registry: labels and
+        # heatmaps exactly against the library engine at the same chunks.
+        c50 = SaliencyClient(host, port, model="r50")
+        f_firsts = masking.sample_window_starts_host(SEED, 3 * SERVE_F32_BUCKET, s, width)
+        f_ev = counted(by_path, "serve_f32_eval_windows",
+                       lambda: c50.eval_windows(image, segments, f_firsts, width, 1), 3, 12)
+        f_lib = e50.eval_window_masks(image, segments, f_firsts, width, 1)
+        f_prob = float(np.abs(np.asarray(f_ev["prob_target"]) - f_lib.prob_target).max())
+        f_w = c50.explain(image, segments=segments, mode="window", seed=SEED,
+                          num_samples=3 * SERVE_F32_BUCKET)
+        f_wres = e50.eval_window_masks(image, segments, f_firsts, width, f_w["target"])
+        if not (f_ev["preds"] == f_lib.preds.tolist() and f_prob <= 1e-6
+                and f_w["target"] == e50.predict_one(image)[0]
+                and np.array_equal(heat_of(f_w), aggregate.summed_superpixel_labels_np(
+                    segments, f_firsts, width, f_wres.survived))):
+            raise AssertionError("[serve] the f32 artifact differs from the library engine")
+        f_ab = c50.attribute_batch(np.stack(images), "gradient", targets=[1] * SERVE_N)
+        f_ab_err = max(rel_err(heat_of(r), heat_of(c50.attribute(images[i], "gradient",
+                                                                 target=1)))
+                       for i, r in enumerate(f_ab))
+        if not f_ab_err <= SERVE_F32_ATTR_TOL:
+            raise AssertionError(f"[serve] f32 /attribute_batch vs per-image: {f_ab_err}")
+        log(f"[serve] f32 ResNet-50 artifact (/m/r50/, bucket {SERVE_F32_BUCKET}): /eval_windows "
+            f"preds and window /explain target and heatmap equal the library engine's, "
+            f"prob err {f_prob:.3g}; /attribute_batch N={SERVE_N} vs per-image /attribute "
+            f"{f_ab_err:.3g} x max |map| (tol {SERVE_F32_ATTR_TOL}); launches "
+            + json.dumps(by_path["serve_f32_eval_windows"]))
+        serving.masked_batch = real_b1
+        b1_seen = {}
+        for image_t, seg_t, f_t, wd, dt, got in served_b1:
+            for odt in (torch.bfloat16, torch.float32):   # the served dtype and the other
+                ker = got if odt == dt else real_b1(image_t, seg_t, f_t, wd, odt)
+                if not torch.equal(ker, masked_batch_plain(image_t, seg_t, f_t, wd, odt)):
+                    raise AssertionError(f"[serve] B1 {odt} K={len(f_t)} (served in {dt}): "
+                                         "kernel differs from its plain version")
+            key = f"K={len(f_t)} {str(dt).split('.')[-1]}"
+            b1_seen[key] = b1_seen.get(key, 0) + 1
+        missing = {f"K={k} bfloat16" for k in SERVE_B1_KS} - set(b1_seen)
+        if missing or "K=32 float32" not in b1_seen:
+            raise AssertionError(f"[serve] the checks made no served B1 launch at {missing}")
+        log("[serve] every B1 launch of the checks above, as served (launches by K and dtype "
+            + json.dumps(b1_seen) + "), bit-exact against masked_batch_plain in bf16 and f32 "
+            "on the synthetic image's segments and the buckets' padded starts")
+        served_b1.clear()
+
+        # 7. p50 per endpoint (warm): the client's, the service call on the body the
+        # client sends (decode, device work, encode; no HTTP), and the device call alone.
+        def p50(fn, reps=SERVE_REQS):
+            fn()
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts)) * 1e3
+
+        img_f = _array_fields("image", image, np.float32)
+        seg_f = _array_fields("segments", segments, np.int32)
+        imgs_f = _array_fields("images", np.stack(images), np.float32)
+        one = {**img_f, **seg_f, "seed": SEED, "target": target}
+        endpoints = {   # name: (client call, service call, device call, requests)
+            "/eval_windows 1000": (
+                lambda: client.eval_windows(image, segments, firsts, width, target),
+                lambda: svc.eval_windows({**img_f, **seg_f, "width": width, "target": target,
+                                          **_array_fields("firsts", firsts, np.int32)}),
+                lambda: srv.eval_window_masks(image, segments, firsts, width, target),
+                SERVE_REQS),
+            "/explain window 100": (
+                lambda: client.explain(image, segments=segments, mode="window", seed=SEED,
+                                       target=target),
+                lambda: svc.explain({**one, "mode": "window"}),
+                lambda: srv.eval_window_masks(image, segments, w_firsts, width, target),
+                SERVE_REQS),
+            "/explain knockout 100": (
+                lambda: client.explain(image, segments=segments, mode="knockout", seed=SEED,
+                                       target=target, num_knockout=SERVE_KNOCKOUT_M),
+                lambda: svc.explain({**one, "mode": "knockout",
+                                     "num_knockout": SERVE_KNOCKOUT_M}),
+                lambda: srv.eval_knockout_masks(image, segments, ids, target), SERVE_REQS),
+            "/explain bo": (
+                lambda: client.explain(image, segments=segments, seed=SEED, target=target),
+                lambda: svc.explain(dict(one)),
+                lambda: bo.explain(image, segments, seed=SEED, target=target), SERVE_REQS),
+            f"/explain_batch N={SERVE_N}": (
+                lambda: client.explain_batch(np.stack(images), segments=np.stack(
+                    [segments] * SERVE_N), targets=[target] * SERVE_N),
+                lambda: svc.explain_batch({**imgs_f, **_array_fields(
+                    "segments", np.stack([segments] * SERVE_N), np.int32),
+                    "targets": [target] * SERVE_N}),
+                lambda: bo.explain_many(images, [segments] * SERVE_N,
+                                        per_image_seeds=list(range(SERVE_N)),
+                                        targets=[target] * SERVE_N), SERVE_REQS),
+            f"/attribute_batch gradient N={SERVE_N}": (
+                lambda: client.attribute_batch(np.stack(images), "gradient",
+                                               targets=[target] * SERVE_N),
+                lambda: svc.attribute_batch({**imgs_f, "method": "gradient",
+                                             "targets": [target] * SERVE_N}),
+                lambda: srv.attribute_many(np.stack(images), [target] * SERVE_N, "gradient"),
+                5),
+        }
+        for method in SERVE_ATTR:
+            endpoints[f"/attribute {method}"] = (
+                lambda m=method: client.attribute(image, m, target=target),
+                lambda m=method: svc.attribute({**img_f, "method": m, "target": target}),
+                (lambda m=method: srv.xrai(image, target)) if method == "xrai" else
+                (lambda m=method: srv.attribute(image, target, m)), 5)
+        lat = {name: [p50(f, n) for f in fns] for name, (*fns, n) in endpoints.items()}
+        # Why one device thread: the same device calls from a fresh thread per
+        # call (the per-request handler threads' way) and on the device thread.
+        def fresh(fn):
+            box = []
+            t = threading.Thread(target=lambda: box.append(fn()))
+            t.start()
+            t.join()
+            return box[0]
+
+        thread_calls = {
+            "predict B=1": lambda: srv.engine.predict(image[None]),
+            "window 100": lambda: srv.eval_window_masks(image, segments, w_firsts, width,
+                                                        target),
+            "occlusion": lambda: srv.attribute(image, target, "occlusion"),
+        }
+        threads_ms = {name: [p50(lambda: run(fn), 10) for run in (
+            fresh, svc._device_thread.run)] for name, fn in thread_calls.items()}
+        log(f"[serve] {smi}: device calls from a fresh thread per call / on the device thread, "
+            "p50 ms: " + json.dumps({k: [round(v, 2) for v in vs]
+                                     for k, vs in threads_ms.items()}))
+        snap = client.metrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        client.eval_windows(image, segments, firsts, width, target)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[serve] {smi}: p50 ms (warm; {SERVE_REQS} requests, attribution 5) as client / "
+            "service call (no HTTP) / device call: " + json.dumps(
+                {k: [round(v, 2) for v in vs] for k, vs in lat.items()})
+            + f"; BO /explain: HTTP + JSON add {lat['/explain bo'][0] - lat['/explain bo'][2]:.2f}"
+            f" ms to the in-process replay; peak device memory at bucket 1024 {peak:.2f} GiB")
+        log(f"[serve] {smi}: /metrics p50 ms " + json.dumps(
+            {k: round(v["latency_seconds"]["p50"] * 1e3, 2)
+             for k, v in snap["endpoints"].items() if "latency_seconds" in v})
+            + "; device_call_ms " + json.dumps(snap.get("device_call_ms", {}))
+            + "; dynamic_batch " + json.dumps(snap.get("dynamic_batch", {})))
+    finally:
+        serving.masked_batch = real_b1
+        served_b1.clear()
+        httpd.shutdown()
+        httpd.server_close()
+
+    # 4. Concurrent clients with dynamic batching on a cold server: the first
+    # BO groups run eagerly and capture while window and eval requests wait
+    # on the device lock; every response equals its serial one.
+    cold = make_http_server(d101, "127.0.0.1", 0, dynamic_batch=True, device="cuda")
+    threading.Thread(target=cold.serve_forever, daemon=True).start()
+    host, port = cold.server_address[:2]
+    serial_window = heat_of(w)
+    serial_ev = ev
+    solo = {i: bo.explain(image, segments, seed=100 + i, target=target)[1].xp.tolist()
+            for i in range(SERVE_CLIENTS)}
+    grouped = {i: bo.explain_batch([image], [segments], per_image_seeds=[100 + i],
+                                   targets=[target])[0][1].xp.tolist()
+               for i in range(SERVE_CLIENTS)}
+    results, errors = {}, []
+
+    def worker(i):
+        try:
+            c = SaliencyClient(host, port)
+            results[i] = (c.explain(image, segments=segments, seed=100 + i, target=target),
+                          c.explain(image, segments=segments, mode="window", seed=SEED),
+                          c.eval_windows(image, segments, firsts, width, target))
+            c.close()
+        except Exception as e:   # every error fails the phase below
+            errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    conc_s = time.perf_counter() - t0
+    stats = dict(cold.service._batcher.stats)
+    captured = sum(e is not None for run in cold.service.bo_server.runners.values()
+                   for e in run.graphs.values())
+    cold.shutdown()
+    cold.server_close()
+    if errors or len(results) != SERVE_CLIENTS:
+        raise AssertionError(f"[serve] concurrent clients failed: {errors}")
+    how = {"single": 0, "coalesced": 0}
+    for i, (rb, rw, re_) in results.items():
+        how["single"] += rb["xp"] == solo[i]
+        how["coalesced"] += rb["xp"] == grouped[i]
+        if rb["xp"] not in (solo[i], grouped[i]):
+            raise AssertionError(f"[serve] concurrent BO /explain {i}: {rb['xp']} is neither its "
+                                 f"single ({solo[i]}) nor its batched ({grouped[i]}) answer")
+        if not (np.array_equal(heat_of(rw), serial_window) and re_ == serial_ev):
+            raise AssertionError(f"[serve] concurrent client {i}: window or eval response "
+                                 "differs from the serial one")
+    log(f"[serve] {SERVE_CLIENTS} concurrent clients x (BO /explain, window /explain, "
+        f"/eval_windows) on a cold dynamic-batch server: no error, every response its serial "
+        f"one (BO traces equal to the single call's: {how['single']}, to the coalesced call's "
+        f"at N={SERVE_N}: {how['coalesced']}), in {conc_s:.2f} s; "
+        f"batcher {json.dumps(stats)}; {captured} BO graphs captured while serving")
+
+    # 5. The CLIs as subprocesses on a small net: export --bo, serve, one
+    # query, SIGTERM.
+    small = f"{tmp}/mnist"
+    env = dict(os.environ, PYTHONPATH=os.getcwd() + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    exp = subprocess.run([sys.executable, "-m", f"{PKG}.cli.export_serving", "--arch",
+                          "mnist_cnn", "--dataset", "mnist", "--dtype", "float32",
+                          "--batch-sizes", "32", "--bo", "--candidate-buckets", "16",
+                          "--bo-image-batches", "2", "--out", small],
+                         capture_output=True, text=True, env=env)
+    if exp.returncode != 0:
+        raise AssertionError(f"[serve] cli.export_serving: rc {exp.returncode}: "
+                             f"{exp.stderr[-2000:]}")
+    proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.cli.serve", "--artifact", small,
+                             "--port", "0", "--warmup"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    lines = []
+    try:
+        url = None
+        deadline = time.time() + 120
+        while url is None and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip())
+            m = re.search(r"http://([^:]+):(\d+)", line)
+            url = (m.group(1), int(m.group(2))) if m else None
+        if url is None:
+            raise AssertionError("[serve] cli.serve printed no URL: " + " | ".join(lines))
+        mnist_img = np.random.RandomState(SEED).rand(28, 28, 1).astype(np.float32)
+        mnist_seg = ((np.arange(28)[:, None] // 7) * 4 + np.arange(28)[None, :] // 7
+                     ).astype(np.int32)
+        q = SaliencyClient(*url).explain(mnist_img, segments=mnist_seg, seed=SEED)
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=60)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            if proc.poll() is None:
+                proc.kill()
+    if proc.returncode != 0 or "draining" not in rest or len(q["xp"]) != 13:
+        raise AssertionError(f"[serve] cli.serve: rc {proc.returncode}, output {rest!r}")
+    log(f"[serve] cli.export_serving --bo and cli.serve --warmup as subprocesses (MNIST CNN, "
+        f"f32): {lines[0] if lines else ''}; one BO /explain answered ({len(q['xp'])} "
+        f"evaluations), SIGTERM drained, exit 0, in {time.perf_counter() - t0:.2f} s")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2228,6 +2819,14 @@ def main() -> int:
             if not torch.equal(masked_batch(image, seg, firsts[-k:], width_dev, dt),
                                masked_batch_plain(image, seg, firsts[-k:], width, dt)):
                 raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
+        # [serve]'s buckets: K = 32 (target inference, the f32 artifact) and
+        # 1,024 (/eval_windows), whose launch plans (groups of 4, and of 64 with
+        # the table of starts full) no other K at this shape gives.
+        for k in SERVE_B1_KS:
+            fk = torch.from_numpy(masking.sample_window_starts_host(SEED + k, k, s, width)).to(dev)
+            if not torch.equal(masked_batch(image, seg, fk, width, dt),
+                               masked_batch_plain(image, seg, fk, width, dt)):
+                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
         buf = torch.zeros((6, 224, 224, 3), dtype=dt, device=dev)
         masked_batch(image, seg, firsts[:3], width_dev, dt, out=buf[3:])
         if not torch.equal(buf[3:], want[:3]) or buf[:3].any():
@@ -2239,7 +2838,8 @@ def main() -> int:
                                                      torch.bfloat16), 50)
     b1_bytes = MASK_BATCH * 224 * 224 * 3 * 2 + 224 * 224 * (3 * 4 + 4) + MASK_BATCH * 4
     b1_bound_ms = b1_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[B1] K={MASK_BATCH}, 1 and 3 (width on the device), and an out= slice, 224x224x3 "
+    log(f"[B1] K={MASK_BATCH}, 1 and 3 (width on the device), "
+        f"{' and '.join(map(str, SERVE_B1_KS))} ([serve]'s buckets), and an out= slice, 224x224x3 "
         f"S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms (device time), "
         f"plain {b1_plain_ms:.4f} ms, bound {b1_bound_ms:.4f} ms ({b1_bytes} bytes), "
         f"{b1_bound_ms / b1_ms:.3f} of bound")
@@ -2252,8 +2852,13 @@ def main() -> int:
     for batch in B2_BATCHES:
         for h, c, p, n in STAGES_101:
             ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
-            x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
-                                 ).to(dev, torch.bfloat16)
+            if batch > MASK_BATCH:   # host draws of this size would take seconds
+                gen = torch.Generator(device=dev).manual_seed(batch * h)
+                x = torch.randn((batch, h, h, c), generator=gen, device=dev).abs_().to(
+                    torch.bfloat16)
+            else:
+                x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
+                                     ).to(dev, torch.bfloat16)
             block_err, outside, chain_err = check_chain(x, ws, B2_TOL)
             b2["block_err"] = max(b2["block_err"], block_err)
             line = (f"[B2] B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
@@ -2436,6 +3041,7 @@ def main() -> int:
     zoo_phase(smi, paths)
     bo_zoo_phase(normalized, seg_np, smi, paths)
     gen_small_phase(smi, paths)
+    serve_phase(engine, normalized, seg_np, target, smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}

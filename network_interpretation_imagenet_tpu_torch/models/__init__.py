@@ -79,6 +79,9 @@ class ModelBundle:
     input_channels: int
     num_classes: int
     dtype: torch.dtype = torch.float32
+    # create_model's arguments (dataset, depth, ...), from which a serving
+    # artifact rebuilds the module; None for a bundle built by hand.
+    create_args: Optional[dict] = dataclasses.field(default=None, compare=False, hash=False)
 
     def init(self, seed: int) -> Dict[str, torch.Tensor]:
         """Seeded random weights (the module's own parameters stay as they are)."""
@@ -188,5 +191,8 @@ def create_model(arch: str, dataset: str = "imagenet", num_classes: Optional[int
                                  in_channels=ch, input_size=size)
     else:
         raise ValueError(f"unknown arch: {arch}")
+    create_args = {"dataset": dataset, "depth": depth, "death_mode": death_mode,
+                   "death_rate": death_rate, "growth_rate": growth_rate, "bn_size": bn_size,
+                   "compression": compression}
     return ModelBundle(name=arch, module=module, input_size=size, input_channels=ch,
-                       num_classes=nc, dtype=dtype)
+                       num_classes=nc, dtype=dtype, create_args=create_args)

@@ -11,7 +11,8 @@ checkpoint round trip, one attribution of each kind (an input
 gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), and the
 val-set sweeps (window with a journal, BO, attribution) and the sweep CLI,
 a zoo net's masked evals, a weights artifact written and read back, and
-the MNIST generator from it, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
+the MNIST generator from it, and one request served over HTTP from a
+serving artifact, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
 import pkgutil
@@ -130,6 +131,21 @@ assert all(torch.equal(back[k], sd[k]) for k in sd)
 payload, _ = gen.compute(gen.parse_args(["--synthetic", "--ckpt", tmp + "/w", "--device", "cpu",
                                          "--num_mask_samples", "8", "--out", tmp + "/g"]))
 assert payload["num_mask_samples"] == 8
+import threading
+from network_interpretation_imagenet_tpu_torch import serving
+from network_interpretation_imagenet_tpu_torch.serving_client import SaliencyClient
+from network_interpretation_imagenet_tpu_torch.serving_http import make_http_server
+serving.export_engine(zoo_engine, tmp + "/art", batch_sizes=(4,), input_size=32)
+serving.export_bo_engine(zoo_engine, tmp + "/art", BOConfig(n_iters=1, n_pre_samples=2),
+                         candidate_buckets=(8,), include_weights=False)
+httpd = make_http_server(tmp + "/art", device="cpu")
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+served = SaliencyClient(*httpd.server_address[:2]).eval_windows(image, segments, out.firsts[:5],
+                                                                out.width, 1)
+httpd.shutdown()
+httpd.server_close()
+assert served["preds"] == zoo_engine.eval_window_masks(image, segments, out.firsts[:5],
+                                                       out.width, 1).preds.tolist()
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -165,5 +181,6 @@ def test_no_jax_import_in_port_sources():
                  "models.vgg", "models.alexnet", "models.squeezenet", "models.inception",
                  "models.googlenet", "models.mobilenet", "models.shufflenet", "models.mnasnet",
                  "data.loaders", "utils.convert", "cli.convert_checkpoint",
-                 "cli.generate_gp_training_data_mnist", "cli.generate_gp_training_data_cifar"):
+                 "cli.generate_gp_training_data_mnist", "cli.generate_gp_training_data_cifar",
+                 "serving", "serving_http", "serving_client", "cli.export_serving", "cli.serve"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

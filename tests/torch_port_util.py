@@ -141,3 +141,24 @@ def calibrate_bn(bundle, state_dict, images):
     with torch.no_grad():
         net.train()(torch.from_numpy(images))
     return {k: v.clone() for k, v in net.state_dict().items()}
+
+
+def serving_mnist():
+    """The serving tests' MNIST CNN (port bundle, state dict), image and
+    16-block segments, and 64 window starts: the seeded weights with
+    BatchNorm statistics measured on the image's width-4 window-masked
+    copies, so masked predictions move (4 and 2 on these masks)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch_plain
+
+    rng = np.random.RandomState(1)
+    idx = np.arange(28) // 7
+    segments = (idx[:, None] * 4 + idx[None, :]).astype(np.int32)
+    image = rng.rand(28, 28, 1).astype(np.float32)
+    firsts = rng.randint(0, 13, size=64).astype(np.int32)
+    masked = masked_batch_plain(torch.from_numpy(image), torch.from_numpy(segments),
+                                torch.from_numpy(firsts), 4, torch.float32).numpy()
+    bundle = create_model("mnist_cnn", "mnist")
+    return bundle, calibrate_bn(bundle, bundle.init(1), masked), image, segments, firsts
