@@ -177,7 +177,28 @@ kernel against its plain PyTorch version on the card:
      memory at bucket 1024; 8 concurrent clients on a cold
      dynamic-batch server (captures while serving), every response its
      serial one; cli.export_serving --bo and cli.serve as subprocesses on
-     the MNIST CNN: one query, SIGTERM, exit 0.
+     the MNIST CNN: one query, SIGTERM, exit 0;
+ 25. [train] (run after [serve]): training on the card. One ResNet-50
+     224 step (stock SGD, B=8) from the same parameters in f32 on the card,
+     f32 on the CPU and f64 on the card: both f32 losses within
+     TRAIN_LOSS_TOL of the f64 one, the card's update (all tensors as one
+     vector) no further from the f64 update in relative L2 than
+     TRAIN_UPDATE_TOL x the CPU's, its running statistics within
+     TRAIN_STATS_TOL; resume under torch.use_deterministic_algorithms
+     (ResNet-50 224 B=16, 4 steps, a save every 2): two uninterrupted runs
+     and one cut after 3 steps and resumed from its save, every parameter,
+     statistic and slot bit for bit equal; cli.main -a resnet50
+     --synthetic --limit-images 2048 -b 256 --epochs 2 (16 steps and
+     validation, B1 0, B2 0) with its meter's per-step times, images/s and
+     peak memory, and the same 16 steps through Trainer.train_epoch under
+     the profiler for the device's idle share; the handoff: the run's
+     model_best through --ckpt into a bf16 engine, predict and 1,024 window
+     masks (B1 1, B2 8), B1 bit-exact on the handoff's masks and B2 block by
+     block within B2_TOL on the trained folded weights at B = 1,024 and 1,
+     window evals/s against a random-weight ResNet-50 engine; the MNIST
+     train-nn -> gp-data chain (1,000 knockouts, B1 0, B2 0; then 1,000
+     window masks on the trained CNN at 28x28x1, B1 1) and CIFAR train -d 110
+     --death-mode linear -> gp-data (B1 0, B2 0).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -2194,6 +2215,326 @@ def gen_small_phase(smi, by_path):
             + f"; launches {json.dumps(by_path[f'gen_{name}'])}")
 
 
+TRAIN_ARGV = ["-a", "resnet50", "--synthetic", "--limit-images", "2048", "-b", "256",
+              "--epochs", "2", "-p", "1"]   # cli.main's stock flags, one meter line per step
+TRAIN_CHECK_BATCH = 8        # the card step against the CPU step
+TRAIN_LOSS_TOL = 1e-5        # f32 loss vs the f64 step's: relative
+TRAIN_UPDATE_TOL = 2.0       # the card's update error vs f64: x the CPU's (rel L2, all tensors)
+TRAIN_STATS_TOL = 1e-4       # the card's running statistics vs f64: x each tensor's scale
+HANDOFF_MASKS = 1024         # the trained checkpoint's window masks, one chunk of 1,024
+
+
+def chain_inputs(plan, x):
+    """The folded net's torch blocks run on NHWC ``x`` with the chains'
+    plain version: [(each stage's chain input NHWC, its chain weights)]."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models.common import max_pool_same
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
+        bottleneck_chain_plain,
+    )
+
+    out = []
+    with torch.inference_mode():
+        y = max_pool_same(plan._conv(x.permute(0, 3, 1, 2), plan.stem, True), 3, 2)
+        for blocks, chain in plan.stages:
+            for convs, ds in blocks:
+                t = y
+                for i, op in enumerate(convs):
+                    t = plan._conv(t, op, relu=i + 1 < len(convs))
+                y = torch.relu(t + (y if ds is None else plan._conv(y, ds, False)))
+            if chain:
+                out.append((y.permute(0, 2, 3, 1), chain))
+                y = bottleneck_chain_plain(y.permute(0, 2, 3, 1), chain).permute(0, 3, 1, 2)
+    return out
+
+
+def step_meter(stdout):
+    """The per-step seconds of Trainer.train_epoch's meter lines (-p 1)."""
+    return [float(line.split("\tTime ")[1].split(" ")[0]) for line in stdout.splitlines()
+            if line.startswith("Epoch: [") and "\tTime " in line]
+
+
+def train_phase(normalized, segments, smi, by_path):
+    """[train]: training on the card, and its checkpoint explained (see the
+    module docstring, 25)."""
+    import os
+    import tempfile
+    import warnings
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import common
+    from network_interpretation_imagenet_tpu_torch.cli import main as train_cli
+    from network_interpretation_imagenet_tpu_torch.config import TrainConfig
+    from network_interpretation_imagenet_tpu_torch.data.loaders import ArrayLoader
+    from network_interpretation_imagenet_tpu_torch.data.synthetic import (
+        synthetic_classification_batch,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.parallel import make_sharded_train_step
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
+        random_window_saliency,
+    )
+    from network_interpretation_imagenet_tpu_torch.train import Trainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    stock = TrainConfig(lr=0.1, momentum=0.9, weight_decay=1e-4)
+
+    # 1. one ResNet-50 f32 step on the card against the CPU step, same parameters,
+    # each held to an f64 step on the card (a ReLU net's f32 gradient is only as
+    # good as its rounding lets it be; the card must be no worse than the CPU)
+    bundle = create_model("resnet50", "imagenet", num_classes=8)
+    sd = bundle.init(SEED)
+    x, y = synthetic_classification_batch(SEED, TRAIN_CHECK_BATCH, 224, 3, 8)
+    after, metrics = {}, {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("f64", "cuda", torch.float64)):
+        init, step = make_sharded_train_step(bundle, None, make_optimizer(stock, 8), device=dev)
+        start = {k: v.to(dtype) if v.is_floating_point() else v for k, v in sd.items()}
+        state, m = step(init(SEED, start), x, y)
+        after[name] = {k: t.detach().cpu().double() for k, t in
+                       {**state.params, **state.buffers}.items()
+                       if not k.endswith("num_batches_tracked")}
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        del state, init, step
+    ref, base = after["f64"], {k: v.double() for k, v in sd.items()}
+    errs = {}
+    for name in ("card", "cpu"):
+        num = den = 0.0
+        worst = (0.0, "")
+        for k, t in ref.items():
+            if k.endswith(("running_mean", "running_var")):
+                continue
+            want = t - base[k]
+            d = float((after[name][k] - base[k] - want).norm()) ** 2
+            num, den = num + d, den + float(want.norm()) ** 2
+            worst = max(worst, ((d ** 0.5) / max(float(want.norm()), 1e-30), k))
+        stats = max(float((after[name][k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(
+            1e-30)) for k in ref if k.endswith(("running_mean", "running_var")))
+        errs[name] = {"loss": abs(metrics[name]["loss"] - metrics["f64"]["loss"])
+                      / abs(metrics["f64"]["loss"]), "update": (num / den) ** 0.5,
+                      "worst": worst, "stats": stats}
+    e_card, e_cpu = errs["card"], errs["cpu"]
+    log(f"[train] ResNet-50 224 B={TRAIN_CHECK_BATCH}, one stock SGD step from the same "
+        f"parameters, f32 on the card and on the CPU, each against f64 on the card: loss "
+        f"{metrics['card']['loss']:.7f} / {metrics['cpu']['loss']:.7f} / "
+        f"{metrics['f64']['loss']:.7f} (rel err card {e_card['loss']:.3g}, CPU "
+        f"{e_cpu['loss']:.3g}; tol {TRAIN_LOSS_TOL}); the update, all tensors as one vector, "
+        f"rel L2 err card {e_card['update']:.3g}, CPU {e_cpu['update']:.3g} (tol: the card within "
+        f"{TRAIN_UPDATE_TOL} x the CPU's); worst tensor card {e_card['worst'][0]:.3g} "
+        f"({e_card['worst'][1]}), CPU {e_cpu['worst'][0]:.3g} ({e_cpu['worst'][1]}); running "
+        f"statistics max err x scale card {e_card['stats']:.3g}, CPU {e_cpu['stats']:.3g}; "
+        f"top1/top5 {metrics['card']['top1']}/{metrics['card']['top5']}")
+    if not (e_card["loss"] <= TRAIN_LOSS_TOL and e_cpu["loss"] <= TRAIN_LOSS_TOL
+            and e_card["update"] <= TRAIN_UPDATE_TOL * e_cpu["update"]
+            and e_card["stats"] <= TRAIN_STATS_TOL):
+        raise AssertionError("[train] the card's step strays from the CPU's")
+    del after
+
+    # 2. resume equality under deterministic algorithms: two uninterrupted runs
+    # and one cut after 3 of 4 steps, resumed from its save at step 2
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    xr, yr = synthetic_classification_batch(SEED + 1, 64, 224, 3, 8)
+    val = ArrayLoader(xr[:16], yr[:16], 16)
+
+    class Cut(Exception):
+        pass
+
+    class CutLoader(ArrayLoader):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 3:
+                    raise Cut
+                yield batch
+
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            def trainer(name):
+                return Trainer(create_model("resnet50", "imagenet", num_classes=8),
+                               TrainConfig(lr=0.1, epochs=1), 4, save_dir=f"{tmp}/{name}",
+                               save_every_steps=2)
+
+            runs = {}
+            for name in ("whole", "again"):
+                t = trainer(name)
+                t.fit(ArrayLoader(xr, yr, 16, shuffle=True), val)
+                runs[name] = t.variables()
+            try:
+                trainer("cut").fit(CutLoader(xr, yr, 16, shuffle=True), val)
+                raise AssertionError("[train] the cut run was not cut")
+            except Cut:
+                pass
+            resumed = trainer("cut")
+            if not (resumed.resume() and resumed.resume_skip_steps == 2):
+                raise AssertionError("[train] no mid-epoch checkpoint to resume")
+            resumed.fit(ArrayLoader(xr, yr, 16, shuffle=True), val)
+            runs["resumed"] = resumed.variables()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0][:120] for w in seen
+                     if "deterministic" in str(w.message)})
+
+    def diff(a, b):
+        return max((runs[a][k].float() - runs[b][k].float()).abs().max().item()
+                   for k in runs[a] if not k.endswith("num_batches_tracked"))
+
+    again_err, resume_err = diff("whole", "again"), diff("whole", "resumed")
+    log(f"[train] resume under torch.use_deterministic_algorithms (ResNet-50 224 f32, B=16, 4 "
+        f"steps, a save every 2; cut after 3, resumed from step 2): max |uninterrupted - again| "
+        f"{again_err:.3g}, max |uninterrupted - resumed| {resume_err:.3g}; ops without a "
+        f"deterministic version: {nondet or 'none'}")
+    if resume_err != 0.0 or again_err != 0.0:
+        raise AssertionError("[train] resumed training is not update-for-update identical")
+
+    # 3. the timed run: cli.main, the user's command, its meter's per-step times;
+    # then the same 16 steps under the profiler for the device's idle share
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = counted(by_path, "train_cli",
+                         lambda: train_cli.main(TRAIN_ARGV + ["--save", tmp]), 0, 0)
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = step_meter(out.getvalue())
+        with open(f"{tmp}/imagenet_train_result.json") as f:
+            result = json.load(f)
+        if rc != 0 or len(steps) != 16 or result["epochs_run"] != 2 or not all(
+                np.isfinite(r[k]) for r in result["history"] for k in ("train_loss", "val_loss")):
+            raise AssertionError(f"[train] cli.main rc {rc}, {len(steps)} steps, {result}")
+        warm = float(np.median(steps[1:]))
+        log(f"[train] {smi}: cli.main {' '.join(TRAIN_ARGV)} (TF32 off): {cli_s:.1f} s with the "
+            f"data and checkpoints; per step (its meter, host sync to host sync) first "
+            f"{steps[0] * 1e3:.1f} ms, warm median {warm * 1e3:.1f} ms (range "
+            f"{min(steps[1:]) * 1e3:.1f}-{max(steps[1:]) * 1e3:.1f}), {256 / warm:.1f} images/s;"
+            f" peak memory {peak:.2f} GiB; history "
+            + json.dumps([{k: r[k] for k in ("train_loss", "val_loss", "val_err1")}
+                          for r in result["history"]]))
+        ckpt = os.path.join(result["save_dir"], "model_best")
+
+        xs, ys = synthetic_classification_batch(SEED, 2048, 224, 3, 8)
+        t = Trainer(create_model("resnet50", "imagenet", num_classes=8),
+                    TrainConfig(lr=0.1, epochs=2), 8)
+        loader = ArrayLoader(xs, ys, 256, shuffle=True)
+
+        def two_epochs():
+            for epoch in range(2):
+                loader.set_epoch(epoch)
+                t.train_epoch(loader, epoch)
+
+        wall_ms, busy = busy_ms(two_epochs)
+        log(f"[train] the same 16 steps through Trainer.train_epoch under the profiler: wall "
+            f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+            f"{1 - busy / wall_ms:.3f}" if busy > 0 else
+            "[train] device time not measured (the profiler saw none)")
+        del t, loader, xs, ys
+
+        # 4. the handoff: model_best through --ckpt into a bf16 engine, 1,024 window masks
+        args = common.build_parser("handoff").parse_args(
+            ["--arch", "resnet50", "--ckpt", ckpt, "--mask-batch", str(HANDOFF_MASKS)])
+        engine = common.build_engine(args, num_classes=8)
+    rnd = create_model("resnet50", "imagenet", num_classes=8, dtype=torch.bfloat16)
+    random_engine = SaliencyEngine(rnd, rnd.init(SEED), mask_batch=HANDOFF_MASKS, device="cuda")
+
+    def handoff():
+        target, _ = engine.predict_one(normalized)
+        return target, random_window_saliency(engine, normalized, segments,
+                                              num_samples=HANDOFF_MASKS, seed=SEED, target=target)
+
+    target, hout = counted(by_path, "train_handoff", handoff, 1, 8)
+    if not np.isfinite(hout.heatmap).all():
+        raise AssertionError("[train] handoff heatmap not finite")
+    dev = torch.device("cuda")
+    image_t = torch.from_numpy(normalized).to(dev)
+    seg_t = torch.from_numpy(np.asarray(segments, np.int32)).to(dev)
+    firsts = torch.from_numpy(hout.firsts).to(dev)
+    masked = masked_batch(image_t, seg_t, firsts, hout.width, torch.bfloat16)
+    if not torch.equal(masked, masked_batch_plain(image_t, seg_t, firsts, hout.width,
+                                                  torch.bfloat16)):
+        raise AssertionError("[train] B1 differs from its plain version on the handoff's masks")
+    worst = 0.0
+    for batch_x in (masked, image_t[None].to(torch.bfloat16)):
+        for x_in, chain in chain_inputs(engine.model, batch_x):
+            block_err, _, _ = check_chain(x_in.contiguous(), chain, B2_TOL)
+            worst = max(worst, block_err)
+    del masked
+    rates = {}
+    for name, e in (("trained", engine), ("random", random_engine)):
+        e.eval_window_masks(normalized, segments, hout.firsts, hout.width, target)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            e.eval_window_masks(normalized, segments, hout.firsts, hout.width, target)
+            ts.append(time.perf_counter() - t0)
+        rates[name] = HANDOFF_MASKS / float(np.median(ts))
+    folded_bn = sum(1 for k in engine.variables if k.endswith("running_var")
+                    and not torch.allclose(engine.variables[k].float(),
+                                           torch.ones_like(engine.variables[k].float())))
+    log(f"[train] handoff: model_best -> --ckpt -> bf16 engine (B2's weights folded from "
+        f"{folded_bn} trained BatchNorm statistics), {HANDOFF_MASKS} window masks: target "
+        f"{target}, survived {int(hout.eval.survived.sum())}/{HANDOFF_MASKS}; launches "
+        f"{json.dumps(by_path['train_handoff'])}; B1 bit-exact at K={HANDOFF_MASKS}; B2 block by "
+        f"block on the trained folded weights at B={HANDOFF_MASKS} and 1, worst block err "
+        f"{worst:.4g} (tol {B2_TOL} x max|plain|); window evals/s trained {rates['trained']:.1f}"
+        f", random weights {rates['random']:.1f} (median of 5)")
+    del engine, random_engine
+    torch.cuda.empty_cache()
+
+    # 5. the generators: train -> gp-data from the trained checkpoint
+    from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_cifar
+    from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_mnist
+
+    for name, gen, mode, extra, ckpt_dir in (
+            ("mnist", generate_gp_training_data_mnist, "train-nn", ["--epochs", "1"],
+             "saved_checkpoints/mnist"),
+            ("cifar", generate_gp_training_data_cifar, "train",
+             ["--epochs", "1", "-d", "110", "--death-mode", "linear"],
+             "saved_checkpoints/cifar10+-resnet-110")):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            counted(by_path, f"train_gen_{name}_train",
+                    lambda: quiet(lambda: gen.main(["--mode", mode, "--out", tmp] + extra)), 0, 0)
+            train_s = time.perf_counter() - t0
+            with open(f"{tmp}/{name}_train_result.json") as f:
+                trained = json.load(f)
+            args = gen.parse_args(["--synthetic", "--ckpt", f"{tmp}/{ckpt_dir}/model_best",
+                                   "--out", f"{tmp}/gp"] + extra[2:])
+            t0 = time.perf_counter()
+            payload, res = counted(by_path, f"train_gen_{name}",
+                                   lambda: quiet(lambda: gen.compute(args)), 0, 0)
+            gp_s = time.perf_counter() - t0
+            if not (np.isfinite(res["out"].heatmap).all()
+                    and payload["num_segments"] == res["out"].num_segments):
+                raise AssertionError(f"[train] {name} gp-data payload {payload}")
+            windows = ""
+            if name == "mnist":   # B1 at 28x28x1 on the trained CNN: 1,000 window masks
+                e = quiet(lambda: common.build_engine(args))
+                image = common.resolve_image(args)[0]
+                w = counted(by_path, "train_gen_mnist_windows", lambda: random_window_saliency(
+                    e, image, res["segments"], num_samples=1000, seed=SEED, target=res["target"]),
+                    1, 0)
+                windows = (f"; 1,000 window masks on its engine survived "
+                           f"{int(w.eval.survived.sum())}, launches "
+                           + json.dumps(by_path["train_gen_mnist_windows"]))
+        log(f"[train] {name}: --mode {mode} {' '.join(extra)} {train_s:.2f} s ("
+            + json.dumps({k: v for k, v in trained.items() if k not in ("history", "save_dir")})
+            + f"), then gp-data from its model_best {gp_s:.2f} s: {args.num_mask_samples} "
+            f"knockouts of M={args.num_masked_superpixels}, survived "
+            f"{payload['correct_pred_count']}; launches {json.dumps(by_path[f'train_gen_{name}'])}"
+            + windows)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def serve_phase(engine, image, segments, target, smi, by_path):
     """[serve]: the serving stack on the card (see the module docstring, 24),
     its artifacts in a temporary directory removed afterwards."""
@@ -3042,6 +3383,7 @@ def main() -> int:
     bo_zoo_phase(normalized, seg_np, smi, paths)
     gen_small_phase(smi, paths)
     serve_phase(engine, normalized, seg_np, target, smi, paths)
+    train_phase(normalized, seg_np, smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}

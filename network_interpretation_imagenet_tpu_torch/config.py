@@ -1,6 +1,6 @@
 """Configuration (port of ``config.py`` of the JAX package): the dataset
-registry, segmentation settings, the engine's compute dtype and the BO
-settings."""
+registry, segmentation settings, the engine's compute dtype, the BO
+settings and the training harness's settings."""
 
 from __future__ import annotations
 
@@ -73,3 +73,21 @@ class BOConfig:
     greater_is_better: bool = True   # maximize survival probability
     # The MLL argmax over this grid replaces sklearn's n_restarts_optimizer=10.
     lengthscale_grid: Tuple[float, ...] = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training harness's settings (reference ``args.py:83-117``'s
+    optimizer group, ``generate_gp_training_data_cifar.py:81-234``)."""
+
+    optimizer: str = "sgd"           # sgd | rmsprop | adam (reference args.py:88)
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    epochs: int = 90
+    batch_size: int = 64
+    patience: int = 0                # early stop (reference args.py:92-94; 0 = off)
+    seed: int = 0
+    decay_rate: float = 0.1
+    decay_epochs: Tuple[int, ...] = (30, 60)  # lr schedule (ref adjust_learning_rate)
+    print_freq: int = 0              # per-batch meter line every N steps (stock main.py -p)

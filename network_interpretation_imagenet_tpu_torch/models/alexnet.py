@@ -12,6 +12,7 @@ from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
     Classifier,
+    Dropout,
     conv_side,
     head_features,
     parts_of,
@@ -38,8 +39,8 @@ class AlexNet(Classifier):
             nn.Conv2d(256, 256, 3, padding=1), nn.ReLU(), nn.MaxPool2d(3, 2))
         side = conv_side(conv_side(conv_side(conv_side(input_size, 11, 4, 2), 3, 2), 3, 2), 3, 2)
         self.classifier = nn.Sequential(
-            nn.Dropout(), nn.Linear(head_features(256, side, input_size, "AlexNet"), 4096),
-            nn.ReLU(), nn.Dropout(), nn.Linear(4096, 4096), nn.ReLU(),
+            Dropout(0.5), nn.Linear(head_features(256, side, input_size, "AlexNet"), 4096),
+            nn.ReLU(), Dropout(0.5), nn.Linear(4096, 4096), nn.ReLU(),
             nn.Linear(4096, num_classes))
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:

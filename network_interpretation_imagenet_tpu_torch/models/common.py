@@ -1,6 +1,7 @@
 """Shared model pieces (port of ``models/common.py`` of the JAX package):
-pools with the JAX package's semantics, ``ConvBNRelu``, the seeded random
-init every classifier shares, and inference BatchNorm folding.
+pools with the JAX package's semantics, flax's training BatchNorm,
+dropout and the draws of a train-mode forward, ``ConvBNRelu``, the seeded
+random init every classifier shares, and inference BatchNorm folding.
 
 Every function here takes NCHW tensors (in any memory format: the port keeps
 activations NHWC in memory as channels_last views).
@@ -8,9 +9,10 @@ activations NHWC in memory as channels_last views).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,6 +50,97 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (its state-dict keys, eval mode and momentum 0.1,
+    which is flax's 0.9) whose training forward updates the running variance
+    with the *biased* batch variance, as flax's ``BatchNorm`` does
+    (``models/common.py:25`` of the JAX package); torch's uses the unbiased
+    one, n / (n - 1) larger. The output is normalized by the batch
+    statistics in both."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class Draws:
+    """The random draws of one train-mode forward: dropout's keep masks and
+    stochastic depth's alive flags, each drawn as the JAX package draws it
+    (``uniform < 1 - rate``, ``uniform >= death_rate``) from ``generator``
+    (on the activations' device; torch's default generator where None),
+    unless ``injected`` holds the decision under the drawing module's name
+    (a test feeds the JAX package's draws in)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 injected: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+        self.generator = generator
+        self.injected = dict(injected or {})
+
+    def _uniform(self, shape, device) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def keep(self, name: str, shape, rate: float, device) -> torch.Tensor:
+        """Dropout's bool keep mask of ``shape``."""
+        if name in self.injected:
+            return self.injected[name].to(device=device, dtype=torch.bool)
+        return self._uniform(shape, device) < 1.0 - rate
+
+    def alive(self, name: str, death_rate: float, device) -> torch.Tensor:
+        """Stochastic depth's 0-d bool: the residual branch is added."""
+        if name in self.injected:
+            return torch.as_tensor(self.injected[name], dtype=torch.bool, device=device)
+        return self._uniform((), device) >= death_rate
+
+
+class Drawing(nn.Module):
+    """A layer that draws in training mode; :func:`drawing` routes its draws."""
+
+    draws: Optional[Draws] = None
+    draw_name: str = ""
+
+    def source(self) -> Draws:
+        return self.draws if self.draws is not None else Draws()
+
+
+@contextlib.contextmanager
+def drawing(module: nn.Module, draws: Draws):
+    """Within the block, every :class:`Drawing` layer of ``module`` draws from
+    ``draws`` under its own module name (``classifier.0``, ``layer1.2``)."""
+    layers = [(name, m) for name, m in module.named_modules() if isinstance(m, Drawing)]
+    for name, m in layers:
+        m.draws, m.draw_name = draws, name
+    try:
+        yield
+    finally:
+        for _, m in layers:
+            m.draws = None
+
+
+class Dropout(Drawing):
+    """flax ``nn.Dropout`` (JAX ``models/alexnet.py:51-53``,
+    ``squeezenet.py:82``, ``inception.py:224``, ``densenet.py:53``): in
+    training mode each element is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, else zeroed; the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.5) -> None:
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = self.source().keep(self.draw_name, x.shape, self.rate, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))
+
+
 class ConvBNRelu(nn.Sequential):
     """Conv -> BN -> ReLU, children ``0`` and ``1`` (the reference's ``conv``
     helper, whose state-dict keys are ``conv{i}.0.*`` / ``conv{i}.1.*``)."""
@@ -55,7 +148,7 @@ class ConvBNRelu(nn.Sequential):
     def __init__(self, inp: int, features: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, bias: bool = True) -> None:
         super().__init__(nn.Conv2d(inp, features, kernel, stride, padding, bias=bias),
-                         nn.BatchNorm2d(features), nn.ReLU())
+                         BatchNorm2d(features), nn.ReLU())
 
 
 def init_state_dict(module: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -173,7 +266,7 @@ class BasicConv2d(nn.Module):
     def __init__(self, inp: int, out: int, kernel, stride: int = 1, padding=0) -> None:
         super().__init__()
         self.conv = nn.Conv2d(inp, out, kernel, stride, padding, bias=False)
-        self.bn = nn.BatchNorm2d(out, eps=0.001)
+        self.bn = BatchNorm2d(out, eps=0.001)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.conv(x)))

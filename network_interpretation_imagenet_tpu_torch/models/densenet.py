@@ -3,7 +3,9 @@ reference's ``models/densenet.py``) and torchvision's DenseNet-121/169/201.
 
 Dense layers are BN -> ReLU -> 1x1 (bn_size * k) -> BN -> ReLU -> 3x3 (k),
 concatenated onto their input (a single 3x3 where ``bn_size <= 0``);
-transitions BN -> ReLU -> 1x1 -> 2x2 average pool; the head BN -> ReLU ->
+transitions BN -> ReLU -> 1x1 -> 2x2 average pool; in training, a
+dense layer's new features pass dropout of ``drop_rate`` (0 by default, as
+in the JAX package); the head BN -> ReLU ->
 ``avgpool_size`` average pool (7 for ImageNet, 8 otherwise) -> flatten in
 the JAX package's (H, W, C) order -> Dense. The reference's stem is one 3x3
 conv; torchvision's (``imagenet_stem``) a 7x7/2 conv and a 3x3/2 max pool.
@@ -21,12 +23,14 @@ import torch
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
+    Dropout,
     avg_pool,
     conv_side,
     flatten_hwc,
-    parts_of,
     head_features,
+    parts_of,
 )
 
 
@@ -43,28 +47,29 @@ def torch_name(path) -> str:
 
 
 class DenseLayer(nn.Module):
-    def __init__(self, inp: int, growth_rate: int, bn_size: int) -> None:
+    def __init__(self, inp: int, growth_rate: int, bn_size: int, drop_rate: float = 0.0) -> None:
         super().__init__()
-        self.norm1 = nn.BatchNorm2d(inp)
+        self.norm1 = BatchNorm2d(inp)
         if bn_size > 0:
             self.conv1 = nn.Conv2d(inp, bn_size * growth_rate, 1, bias=False)
-            self.norm2 = nn.BatchNorm2d(bn_size * growth_rate)
+            self.norm2 = BatchNorm2d(bn_size * growth_rate)
             self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False)
         else:
             self.conv1 = nn.Conv2d(inp, growth_rate, 3, padding=1, bias=False)
         self.bottleneck = bn_size > 0
+        self.drop = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(torch.relu(self.norm1(x)))
         if self.bottleneck:
             y = self.conv2(torch.relu(self.norm2(y)))
-        return torch.cat([x, y], dim=1)
+        return torch.cat([x, self.drop(y)], dim=1)
 
 
 class Transition(nn.Module):
     def __init__(self, inp: int, out: int) -> None:
         super().__init__()
-        self.norm = nn.BatchNorm2d(inp)
+        self.norm = BatchNorm2d(inp)
         self.conv = nn.Conv2d(inp, out, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +80,7 @@ class DenseNet(Classifier):
     def __init__(self, growth_rate: int = 12, block_config: Sequence[int] = (16, 16, 16),
                  compression: float = 0.5, num_init_features: int = 24, bn_size: int = 4,
                  avgpool_size: int = 8, num_classes: int = 10, imagenet_stem: bool = False,
-                 in_channels: int = 3, input_size: int = 32) -> None:
+                 in_channels: int = 3, input_size: int = 32, drop_rate: float = 0.0) -> None:
         super().__init__()
         self.block_config = tuple(int(n) for n in block_config)
         self.avgpool_size = int(avgpool_size)
@@ -88,19 +93,19 @@ class DenseNet(Classifier):
         else:
             f.conv0 = nn.Conv2d(in_channels, num_init_features, 3, 1, 1, bias=False)
             side = input_size
-        f.norm0 = nn.BatchNorm2d(num_init_features)
+        f.norm0 = BatchNorm2d(num_init_features)
         num = num_init_features
         for i, n_layers in enumerate(self.block_config, start=1):
             block = nn.Module()
             for j in range(1, n_layers + 1):
-                block.add_module(f"denselayer{j}", DenseLayer(num, growth_rate, bn_size))
+                block.add_module(f"denselayer{j}", DenseLayer(num, growth_rate, bn_size, drop_rate))
                 num += growth_rate
             f.add_module(f"denseblock{i}", block)
             if i != len(self.block_config):
                 out = int(num * compression)
                 f.add_module(f"transition{i}", Transition(num, out))
                 num, side = out, conv_side(side, 2, 2)
-        f.norm5 = nn.BatchNorm2d(num)
+        f.norm5 = BatchNorm2d(num)
         side = conv_side(side, self.avgpool_size, self.avgpool_size)
         self.classifier = nn.Linear(head_features(num, side, input_size, "this DenseNet"),
                                     num_classes)
@@ -155,7 +160,7 @@ def create_densenet_torchvision(arch: str, num_classes: int = 1000, in_channels:
 def create_densenet(data: str = "cifar10", depth: int = 100, growth_rate: int = 12,
                     num_classes: int = 10, num_init_features: int = 24,
                     compression: float = 0.5, bn_size: int = 4, in_channels: int = 3,
-                    input_size: int = 32) -> DenseNet:
+                    input_size: int = 32, drop_rate: float = 0.0) -> DenseNet:
     """The reference's ``createModel`` (``models/densenet.py:102-120``):
     depth 3N+4, N / 2 layers per block with bottlenecks."""
     if (depth - 4) % 3:
@@ -166,4 +171,4 @@ def create_densenet(data: str = "cifar10", depth: int = 100, growth_rate: int = 
     return DenseNet(growth_rate=growth_rate, block_config=(n, n, n), compression=compression,
                     num_init_features=num_init_features, bn_size=bn_size,
                     avgpool_size=7 if data == "imagenet" else 8, num_classes=num_classes,
-                    in_channels=in_channels, input_size=input_size)
+                    in_channels=in_channels, input_size=input_size, drop_rate=drop_rate)

@@ -18,6 +18,7 @@ from torch import nn
 from network_interpretation_imagenet_tpu_torch.models.common import (
     BasicConv2d,
     Classifier,
+    Dropout,
     global_mean_pool,
     parts_of,
     transform_input,
@@ -165,6 +166,7 @@ class InceptionV3(Classifier):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
+        self.dropout = Dropout(0.5)
         self.fc = nn.Linear(2048, num_classes)
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +178,7 @@ class InceptionV3(Classifier):
                 x = _max3s2(x)
         for name in _MIXED:
             x = getattr(self, name)(x)
-        return self.fc(global_mean_pool(x))
+        return self.fc(self.dropout(global_mean_pool(x)))
 
     def flax_paths(self) -> list:
         paths = []

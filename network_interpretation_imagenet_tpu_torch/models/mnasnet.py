@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
     global_mean_pool,
     torch_name_by_index,
@@ -36,10 +37,10 @@ class InvertedResidual(nn.Module):
         mid = in_ch * expansion
         self.residual = in_ch == out_ch and stride == 1
         self.layers = nn.Sequential(
-            nn.Conv2d(in_ch, mid, 1, bias=False), nn.BatchNorm2d(mid), nn.ReLU(),
+            nn.Conv2d(in_ch, mid, 1, bias=False), BatchNorm2d(mid), nn.ReLU(),
             nn.Conv2d(mid, mid, kernel, stride, kernel // 2, groups=mid, bias=False),
-            nn.BatchNorm2d(mid), nn.ReLU(),
-            nn.Conv2d(mid, out_ch, 1, bias=False), nn.BatchNorm2d(out_ch))
+            BatchNorm2d(mid), nn.ReLU(),
+            nn.Conv2d(mid, out_ch, 1, bias=False), BatchNorm2d(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.layers(x) if self.residual else self.layers(x)
@@ -49,10 +50,10 @@ class MNASNet(Classifier):
     def __init__(self, alpha: float = 1.0, num_classes: int = 1000, in_channels: int = 3) -> None:
         super().__init__()
         d = get_depths(alpha)
-        layers = [nn.Conv2d(in_channels, d[0], 3, 2, 1, bias=False), nn.BatchNorm2d(d[0]),
+        layers = [nn.Conv2d(in_channels, d[0], 3, 2, 1, bias=False), BatchNorm2d(d[0]),
                   nn.ReLU(), nn.Conv2d(d[0], d[0], 3, 1, 1, groups=d[0], bias=False),
-                  nn.BatchNorm2d(d[0]), nn.ReLU(), nn.Conv2d(d[0], d[1], 1, bias=False),
-                  nn.BatchNorm2d(d[1])]
+                  BatchNorm2d(d[0]), nn.ReLU(), nn.Conv2d(d[0], d[1], 1, bias=False),
+                  BatchNorm2d(d[1])]
         c_in = d[1]
         for (k, s, e, r), c_out in zip(STACKS, d[2:]):
             units = []
@@ -60,9 +61,10 @@ class MNASNet(Classifier):
                 units.append(InvertedResidual(c_in, c_out, k, s if b == 0 else 1, e))
                 c_in = c_out
             layers.append(nn.Sequential(*units))
-        layers += [nn.Conv2d(c_in, 1280, 1, bias=False), nn.BatchNorm2d(1280), nn.ReLU()]
+        layers += [nn.Conv2d(c_in, 1280, 1, bias=False), BatchNorm2d(1280), nn.ReLU()]
         self.layers = nn.Sequential(*layers)
-        self.classifier = nn.Sequential(nn.Dropout(0.2), nn.Linear(1280, num_classes))
+        # torchvision's Dropout slot holds Identity: the JAX model has none.
+        self.classifier = nn.Sequential(nn.Identity(), nn.Linear(1280, num_classes))
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         return self.classifier(global_mean_pool(self.layers(x)))

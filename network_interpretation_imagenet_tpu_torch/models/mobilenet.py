@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
     global_mean_pool,
     torch_name_by_index,
@@ -27,7 +28,7 @@ class ConvBNReLU6(nn.Sequential):
                  groups: int = 1) -> None:
         super().__init__(nn.Conv2d(inp, out, kernel, stride, (kernel - 1) // 2, groups=groups,
                                    bias=False),
-                         nn.BatchNorm2d(out), nn.ReLU6())
+                         BatchNorm2d(out), nn.ReLU6())
 
 
 class InvertedResidual(nn.Module):
@@ -37,7 +38,7 @@ class InvertedResidual(nn.Module):
         self.use_res = stride == 1 and inp == oup
         layers = [ConvBNReLU6(inp, hidden, 1)] if expand_ratio != 1 else []
         layers += [ConvBNReLU6(hidden, hidden, 3, stride, groups=hidden),
-                   nn.Conv2d(hidden, oup, 1, bias=False), nn.BatchNorm2d(oup)]
+                   nn.Conv2d(hidden, oup, 1, bias=False), BatchNorm2d(oup)]
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,8 @@ class MobileNetV2(Classifier):
                 c_in = c
         layers.append(ConvBNReLU6(c_in, 1280, 1))
         self.features = nn.Sequential(*layers)
-        self.classifier = nn.Sequential(nn.Dropout(0.2), nn.Linear(1280, num_classes))
+        # torchvision's Dropout slot holds Identity: the JAX model has none.
+        self.classifier = nn.Sequential(nn.Identity(), nn.Linear(1280, num_classes))
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         return self.classifier(global_mean_pool(self.features(x)))

@@ -1,13 +1,17 @@
 """The CIFAR ResNet-6N+2 (port of ``models/resnet_cifar.py`` of the JAX
-package, the reference's ``models/resnet.py``), in eval mode.
+package, the reference's ``models/resnet.py``) with stochastic depth.
 
 Each block's residual branch reads the block input before the shortcut
 downsamples it (its first conv carries the stride); the shortcut is the
 parameter-free ``DownsampleB``: an average pool of the stride, then the
 channels padded with zeros. Eval mode adds the whole branch, unscaled, for
-every death rate (JAX ``resnet_cifar.py:55-108``): stochastic depth's draws
-and the ``1 / (1 - death_rate)`` scaling happen only in training, which
-this port does not do yet. :func:`death_rates_for` is the reference's
+every death rate. In training a block with death rate d > 0 follows JAX
+``resnet_cifar.py:54-104``: its branch is scaled by ``1 / (1 - d)``, one
+uniform draw u decides ``alive = u >= d``, a live block returns
+``relu(shortcut + branch)`` and a dead one the shortcut itself, without the
+ReLU. The branch is computed, and its BatchNorm statistics updated, dead or
+alive (the reference's torch code skips a dead branch; the JAX package, which
+the port is held to, does not). :func:`death_rates_for` is the reference's
 schedule. State-dict keys are the reference's (``conv1``, ``bn1``,
 ``layer{1..3}.{b}.{conv1,bn1,conv2,bn2}``, ``fc``).
 """
@@ -20,7 +24,9 @@ import torch
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
+    Drawing,
     avg_pool,
     conv_side,
     flatten_hwc,
@@ -43,19 +49,24 @@ class DownsampleB(nn.Module):
         return torch.cat([x] + [torch.zeros_like(x)] * (reps - 1), dim=1) if reps > 1 else x
 
 
-class CifarBlock(nn.Module):
-    def __init__(self, inplanes: int, planes: int, stride: int, downsample: bool) -> None:
+class CifarBlock(Drawing):
+    def __init__(self, inplanes: int, planes: int, stride: int, downsample: bool,
+                 death_rate: float = 0.0) -> None:
         super().__init__()
+        self.death_rate = float(death_rate)
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = DownsampleB(planes, stride) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.bn2(self.conv2(torch.relu(self.bn1(self.conv1(x)))))
         shortcut = x if self.downsample is None else self.downsample(x)
-        return torch.relu(shortcut + r)
+        if not (self.training and self.death_rate > 0):
+            return torch.relu(shortcut + r)
+        alive = self.source().alive(self.draw_name, self.death_rate, x.device)
+        return torch.where(alive, torch.relu(shortcut + r / (1.0 - self.death_rate)), shortcut)
 
 
 class ResNetCifar(Classifier):
@@ -66,16 +77,17 @@ class ResNetCifar(Classifier):
             raise ValueError(f"depth should be 6N+2, got {depth}")
         self.depth = int(depth)
         self.n = (depth - 2) // 6
-        # Kept for the reference's model arguments; eval mode never reads them.
         self.death_rates = death_rates
+        rates = list(death_rates) if death_rates is not None else [0.0] * (3 * self.n)
         self.conv1 = nn.Conv2d(in_channels, 16, 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(16)
+        self.bn1 = BatchNorm2d(16)
         inplanes = 16
         for stage, planes in enumerate((16, 32, 64)):
             blocks = []
             for b in range(self.n):
                 s = 2 if stage > 0 and b == 0 else 1
-                blocks.append(CifarBlock(inplanes, planes, s, s != 1 or inplanes != planes))
+                blocks.append(CifarBlock(inplanes, planes, s, s != 1 or inplanes != planes,
+                                         rates[stage * self.n + b]))
                 inplanes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         # The head reads the final 8x8 average pool flattened (H, W, C): 64

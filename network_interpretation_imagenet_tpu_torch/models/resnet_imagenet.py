@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
     fold_bn,
     max_pool_same,
@@ -56,12 +57,12 @@ class BasicBlock(nn.Module):
                  downsample: bool = False) -> None:
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = (
             nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                          nn.BatchNorm2d(planes))
+                          BatchNorm2d(planes))
             if downsample else None
         )
 
@@ -82,14 +83,14 @@ class Bottleneck(nn.Module):
         # torchvision: width = planes * base_width / 64 * groups
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = (
             nn.Sequential(nn.Conv2d(inplanes, out, 1, stride, bias=False),
-                          nn.BatchNorm2d(out))
+                          BatchNorm2d(out))
             if downsample else None
         )
 
@@ -113,7 +114,7 @@ class ResNet(Classifier):
         self.stage_sizes = tuple(int(n) for n in stage_sizes)
         bkw = dict(groups=groups, base_width=base_width) if block is Bottleneck else {}
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, num_blocks in enumerate(self.stage_sizes):
             planes = 64 * 2**stage

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
     global_mean_pool,
     torch_name_by_index,
@@ -42,15 +43,15 @@ class InvertedResidual(nn.Module):
         bf = oup // 2
         self.stride = stride
         if stride > 1:
-            self.branch1 = nn.Sequential(_dw(inp, stride), nn.BatchNorm2d(inp),
-                                         nn.Conv2d(inp, bf, 1, bias=False), nn.BatchNorm2d(bf),
+            self.branch1 = nn.Sequential(_dw(inp, stride), BatchNorm2d(inp),
+                                         nn.Conv2d(inp, bf, 1, bias=False), BatchNorm2d(bf),
                                          nn.ReLU())
         else:
             self.branch1 = nn.Sequential()
         self.branch2 = nn.Sequential(
-            nn.Conv2d(inp if stride > 1 else bf, bf, 1, bias=False), nn.BatchNorm2d(bf),
-            nn.ReLU(), _dw(bf, stride), nn.BatchNorm2d(bf), nn.Conv2d(bf, bf, 1, bias=False),
-            nn.BatchNorm2d(bf), nn.ReLU())
+            nn.Conv2d(inp if stride > 1 else bf, bf, 1, bias=False), BatchNorm2d(bf),
+            nn.ReLU(), _dw(bf, stride), BatchNorm2d(bf), nn.Conv2d(bf, bf, 1, bias=False),
+            BatchNorm2d(bf), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride == 1:
@@ -66,7 +67,7 @@ class ShuffleNetV2(Classifier):
                  in_channels: int = 3) -> None:
         super().__init__()
         self.conv1 = nn.Sequential(nn.Conv2d(in_channels, stage_out[0], 3, 2, 1, bias=False),
-                                   nn.BatchNorm2d(stage_out[0]), nn.ReLU())
+                                   BatchNorm2d(stage_out[0]), nn.ReLU())
         c_in = stage_out[0]
         for si, (repeats, c_out) in enumerate(zip(REPEATS, stage_out[1:4]), start=2):
             units = []
@@ -75,7 +76,7 @@ class ShuffleNetV2(Classifier):
                 c_in = c_out
             setattr(self, f"stage{si}", nn.Sequential(*units))
         self.conv5 = nn.Sequential(nn.Conv2d(c_in, stage_out[4], 1, bias=False),
-                                   nn.BatchNorm2d(stage_out[4]), nn.ReLU())
+                                   BatchNorm2d(stage_out[4]), nn.ReLU())
         self.fc = nn.Linear(stage_out[4], num_classes)
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
     Classifier,
+    Dropout,
     global_mean_pool,
     max_pool_ceil,
     parts_of,
@@ -70,7 +71,7 @@ class SqueezeNet(Classifier):
                 layers.append(Fire(inp, *step))
                 inp = step[1] + step[2]
         self.features = nn.Sequential(*layers)
-        self.classifier = nn.Sequential(nn.Dropout(), nn.Conv2d(inp, num_classes, 1))
+        self.classifier = nn.Sequential(Dropout(0.5), nn.Conv2d(inp, num_classes, 1))
         self._names = squeezenet_names(version)
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:

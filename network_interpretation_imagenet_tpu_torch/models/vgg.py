@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
+    BatchNorm2d,
     Classifier,
     head_features,
     parts_of,
@@ -56,13 +57,15 @@ class VGG(Classifier):
                 continue
             layers.append(nn.Conv2d(inp, int(v), 3, padding=1))
             if batch_norm:
-                layers.append(nn.BatchNorm2d(int(v)))
+                layers.append(BatchNorm2d(int(v)))
             layers.append(nn.ReLU())
             inp = int(v)
         self.features = nn.Sequential(*layers)
+        # torchvision's Dropout slots hold Identity: the JAX model has no
+        # dropout, so none is live in training either.
         self.classifier = nn.Sequential(
-            nn.Linear(head_features(inp, side, input_size, "VGG"), 4096), nn.ReLU(), nn.Dropout(),
-            nn.Linear(4096, 4096), nn.ReLU(), nn.Dropout(), nn.Linear(4096, num_classes))
+            nn.Linear(head_features(inp, side, input_size, "VGG"), 4096), nn.ReLU(), nn.Identity(),
+            nn.Linear(4096, 4096), nn.ReLU(), nn.Identity(), nn.Linear(4096, num_classes))
         self._names = vgg_names(cfg, batch_norm)
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:

@@ -116,8 +116,9 @@ def _from_jax(variables: Mapping[str, Any], name: Callable) -> Dict[str, torch.T
         if "scale" in params:
             n = name(path)
             sd[f"{n}.weight"], sd[f"{n}.bias"] = t(params["scale"]), t(params["bias"])
-            sd[f"{n}.running_mean"], sd[f"{n}.running_var"] = t(stats["mean"]), t(stats["var"])
-            sd[f"{n}.num_batches_tracked"] = torch.tensor(0)
+            if stats:  # absent for a params-shaped tree (an optimizer's slots)
+                sd[f"{n}.running_mean"], sd[f"{n}.running_var"] = t(stats["mean"]), t(stats["var"])
+                sd[f"{n}.num_batches_tracked"] = torch.tensor(0)
             return
         for key in params:
             walk(params[key], stats.get(key, {}), path + (key,))

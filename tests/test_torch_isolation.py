@@ -11,8 +11,8 @@ checkpoint round trip, one attribution of each kind (an input
 gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), and the
 val-set sweeps (window with a journal, BO, attribution) and the sweep CLI,
 a zoo net's masked evals, a weights artifact written and read back, and
-the MNIST generator from it, and one request served over HTTP from a
-serving artifact, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
+the MNIST generator from it, one request served over HTTP from a
+serving artifact, and one epoch of ``cli.main --synthetic``, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
 
 import os
 import pkgutil
@@ -146,6 +146,12 @@ httpd.shutdown()
 httpd.server_close()
 assert served["preds"] == zoo_engine.eval_window_masks(image, segments, out.firsts[:5],
                                                        out.width, 1).preds.tolist()
+from network_interpretation_imagenet_tpu_torch.cli import main as train_main
+torch.set_num_threads(1)   # small ops under pytest-xdist's load: no thread contention
+assert train_main.main(["-a", "mnist_cnn", "--synthetic", "--crop", "16", "--limit-images", "16",
+                        "-b", "8", "--epochs", "1", "-p", "0", "--device", "cpu",
+                        "--save", tmp + "/train"]) == 0
+assert restore_checkpoint(tmp + "/train/imagenet-mnist_cnn", "model_best")["arch"] == "mnist_cnn"
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print("ISOLATED_OK", out.num_segments, len(out.eval.survived))
@@ -182,5 +188,7 @@ def test_no_jax_import_in_port_sources():
                  "models.googlenet", "models.mobilenet", "models.shufflenet", "models.mnasnet",
                  "data.loaders", "utils.convert", "cli.convert_checkpoint",
                  "cli.generate_gp_training_data_mnist", "cli.generate_gp_training_data_cifar",
-                 "serving", "serving_http", "serving_client", "cli.export_serving", "cli.serve"):
+                 "serving", "serving_http", "serving_client", "cli.export_serving", "cli.serve",
+                 "utils.nn", "parallel", "parallel.train_step", "train", "train.harness",
+                 "data.imagenet_train", "cli.main"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

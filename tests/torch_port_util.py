@@ -1,5 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py port-parity tests."""
 
+import contextlib
+
 import numpy as np
 
 
@@ -162,3 +164,18 @@ def serving_mnist():
                                 torch.from_numpy(firsts), 4, torch.float32).numpy()
     bundle = create_model("mnist_cnn", "mnist")
     return bundle, calibrate_bn(bundle, bundle.init(1), masked), image, segments, firsts
+
+
+@contextlib.contextmanager
+def torch_threads(n=1):
+    """``n`` torch threads within the block: pytest-xdist's workers each
+    default to every core, and small ops then spend their time contending
+    (a CPU training loop ran 150x slower under the tier-1 run than alone)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
