@@ -26,7 +26,9 @@ kernel against its plain PyTorch version on the card:
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
      N=8 loop's), 32 and 256, 4 and 12 (the sweep's flushes of 4 images: a
      predict or a BO iteration, the BO pre-samples) and 100 (the window
-     CLIs' default chunk) and 1024 ([serve]'s /eval_windows bucket); f32 at
+     CLIs' default chunk), 1024 ([serve]'s /eval_windows bucket), and 2, 6
+     and 512 ([parallel]'s: a rank's BO forwards and its half of 1,024
+     masks); f32 at
      B = 1, 2, 32 ([serve]'s f32 artifact) and 256 (the f32 sweep's
      predicts and chunk) at all four shapes and at B=4 at two; per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
@@ -198,7 +200,29 @@ kernel against its plain PyTorch version on the card:
      window evals/s against a random-weight ResNet-50 engine; the MNIST
      train-nn -> gp-data chain (1,000 knockouts, B1 0, B2 0; then 1,000
      window masks on the trained CNN at 28x28x1, B1 1) and CIFAR train -d 110
-     --death-mode linear -> gp-data (B1 0, B2 0).
+     --death-mode linear -> gp-data (B1 0, B2 0);
+ 26. [parallel] (run after [train]): multi-GPU explanation on
+     torch.distributed, its ranks spawned as processes of this script
+     (``--parallel-worker``), each printing its B1/B2 launches. A world of 1
+     on NCCL: the four sharded evals (1,024 windows and 1,024 knockouts on
+     one image, the 8 x 128 window and knockout grids; ResNet-101 224 bf16,
+     one forward each) against the engine's unsharded path (survive
+     agreement >= PARALLEL_AGREE, prob_target within PARALLEL_PROB_TOL), 256
+     windows at ResNet-50 f32 (labels equal, prob_target within
+     PARALLEL_F32_TOL), and evals/s of the sharded call against
+     eval_window_masks at mask_batch 1,024 and 256 (the collective's cost).
+     Two ranks on gloo sharing the card: cli.saliency_sweep --multihost on 8
+     synthetic images x 1,024 masks (rows, heatmaps and their boxes equal to
+     the single-process sweep's, run here first), --data-parallel with the
+     GP-surrogate pass (each image's masks 512 / 512; survival within
+     1 - PARALLEL_AGREE of the single-process rows, the mesh's GP fits
+     against unsharded fits of the same heatmaps within GP_TOL), --bo
+     --data-parallel at --image-batch 4, and through the API the BO loop
+     with its images and with its proposals (q = 2) sharded (every score
+     against the engine's on the same start within BO_SCORE_TOL), an input
+     gradient (SERVE_BF16_ATTR_TOL, SERVE_BF16_ATTR_RHO) and RISE
+     (ATTR_B2_TOL) against the unsharded calls; merged evals/s and each
+     rank's p50. Every rank's launches sum under the path "parallel".
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -228,8 +252,11 @@ CLI_MASKS = 100              # the CLIs' default --num_mask_samples: one chunk o
 # B2's block-by-block batches: the BO loops', 32, the main path's chunk, and
 # every batch the sweep's lanes give it (a flush's predict and BO iteration
 # at SWEEP_BATCH, its BO pre-samples at 3 * SWEEP_BATCH, the CLIs' chunk).
-B2_BATCHES = (1, 3, SWEEP_BATCH, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MASK_BATCH,
+B2_BATCHES = (1, 2, 3, SWEEP_BATCH, 6, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MASK_BATCH,
+              512,           # [parallel]: a rank's half of 1,024 masks
               1024)          # [serve]'s /eval_windows bucket
+# ([parallel]'s BO: a rank's 2 images of a flush of 4 give 2 x 3 pre-samples
+# and 2 x 1 per iteration; its proposals, q = 2 over 2 ranks, 1 and 3 -> 4 / 2.)
 # The f32 sweep lane's: predicts at 1 and 2, its chunk; [serve]'s f32 artifact's bucket, 32.
 B2_F32_BATCHES = (1, 2, 32, MASK_BATCH)
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
@@ -293,6 +320,12 @@ ZOO = (("mnist_cnn", "mnist", {}), ("resnet", "cifar10+", {"depth": 56}),
 ZOO_TOL = 0.05               # a bf16 plan vs the plain f32 module: x max |logit|, as [main]
 ZOO_F32_TOL = 1e-4           # the f32 module, card vs CPU: x max |logit|, as [main]'s f32 engine
 PKG = "network_interpretation_imagenet_tpu_torch"
+PARALLEL_IMAGES = 8          # [parallel]: synthetic images of the sweeps, and the multi grid's N
+PARALLEL_MULTI_K = 128
+PARALLEL_F32_K = 256         # the f32 check's windows: one forward of the f32 sweep's chunk
+PARALLEL_AGREE = 0.99        # bf16: survive agreement, sharded (one forward) vs the engine's chunks
+PARALLEL_PROB_TOL = 2e-2     # bf16: prob_target, sharded vs the engine's
+PARALLEL_F32_TOL = 1e-5      # f32: prob_target, sharded vs the engine's
 
 
 def log(*args):
@@ -314,27 +347,35 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps, prefix):
+def kernel_ms(fn, reps, prefix, tries=3):
     """Mean device milliseconds of the kernels whose symbol starts with
-    ``prefix``, over the last ``reps`` of ``reps + 1`` warm calls under
-    torch.profiler (a trace may lose its first kernel). For a kernel shorter
-    than its wrapper's host cost, back-to-back CUDA-event timing measures the
-    host instead."""
+    ``prefix``, over the last ``reps`` of ``2 * reps`` warm calls under
+    torch.profiler. A trace may lose the kernels launched while its tracing
+    starts (a kernel of a few microseconds: 4 of 21 seen lost on the H100),
+    so the first ``reps`` calls are a lead-in, and a trace that still holds
+    fewer than ``reps`` is taken again, ``tries`` times in all. For a kernel
+    shorter than its wrapper's host cost, back-to-back CUDA-event timing
+    measures the host instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 1):
-            fn()
-        torch.cuda.synchronize()
-    launches = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.name),
-                      key=lambda e: e.time_range.start)
-    if len(launches) < reps:
-        raise AssertionError(f"profiler saw {len(launches)} {prefix} kernels in {reps + 1} calls")
-    return sum(e.device_time for e in launches[-reps:]) / reps / 1e3
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * reps):
+                fn()
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and prefix in e.name),
+                          key=lambda e: e.time_range.start)
+        if len(launches) >= reps:
+            return sum(e.device_time for e in launches[-reps:]) / reps / 1e3
+        seen.append(len(launches))
+    raise AssertionError(f"profiler saw {seen} {prefix} kernels in {tries} traces of "
+                         f"{2 * reps} calls each")
 
 
 def conv_us(x, ws):
@@ -577,34 +618,39 @@ def replay_ms(graph, reps):
     return time_ms(graph.replay, reps)
 
 
-def replay_trace(graph):
+def replay_trace(graph, tries=3):
     """One replay of a captured CUDA graph under torch.profiler. Returns
     (wall ms from replay() to the end of the device sync, the trace's device
     span from the first interval's start to the last one's end, ms covered by
     the union of its device intervals, device ms by group), all from this one
     profiled call. The busy share is union / span: the wall also holds the
-    profiler's own start and stop. Raises unless the trace holds B1 and B2
-    kernels."""
+    profiler's own start and stop. A trace may lose the kernels launched while
+    its tracing starts (see kernel_ms), so a replay whose trace lacks B1 or B2
+    is traced again, ``tries`` times in all; raises if none holds both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        graph.replay()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = []
-    groups = {"B2 bottleneck_chain": 0.0, "B1 masked_batch": 0.0, "other": 0.0}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        group = ("B2 bottleneck_chain" if "b2_conv" in e.name else
-                 "B1 masked_batch" if "b1_masked_batch" in e.name else "other")
-        groups[group] += (e.time_range.end - e.time_range.start) / 1e3
-    if not (groups["B2 bottleneck_chain"] > 0 and groups["B1 masked_batch"] > 0):
-        raise AssertionError(f"graph replay trace: no B1 or no B2 kernel in it: {groups}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            graph.replay()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = []
+        groups = {"B2 bottleneck_chain": 0.0, "B1 masked_batch": 0.0, "other": 0.0}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            group = ("B2 bottleneck_chain" if "b2_conv" in e.name else
+                     "B1 masked_batch" if "b1_masked_batch" in e.name else "other")
+            groups[group] += (e.time_range.end - e.time_range.start) / 1e3
+        if groups["B2 bottleneck_chain"] > 0 and groups["B1 masked_batch"] > 0:
+            break
+    else:
+        raise AssertionError(f"graph replay trace: no B1 or no B2 kernel in {tries} traces: "
+                             f"{groups}")
     union, reach = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > reach:
@@ -3072,6 +3118,421 @@ def serve_checks(tmp, engine, image, segments, target, smi, by_path):
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def _parallel_spawn(argvs, timeout):
+    """Runs ``--parallel-worker`` processes of this script, one per argv, and
+    returns the JSON line each prints last; a worker that fails or outlives
+    ``timeout`` fails the phase (and every worker is stopped)."""
+    import os
+
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"[parallel] worker {p.args[3:]} exited {p.returncode}:\n"
+                                 f"{out[-2000:]}\n{err[-6000:]}")
+    return [json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+            for out, _ in outs]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launches():
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+
+    return {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches}
+
+
+def _reset_launches():
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+
+    masked_batch.launches = 0
+    bottleneck_chain.launches = 0
+
+
+def _parallel_images(seeds):
+    """Normalized synthetic images, their Felzenszwalb segments and displays."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        SegmentConfig,
+    )
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
+        normalize,
+        to_display_uint8,
+    )
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    imgs, segs = [], []
+    for seed in seeds:
+        u8, _ = synthetic_image(seed)
+        x = normalize(torch.from_numpy(u8.astype(np.float32) / 255.0), IMAGENET_MEAN,
+                      IMAGENET_STD).numpy()
+        imgs.append(x)
+        segs.append(np.asarray(segment_image(to_display_uint8(torch.from_numpy(x)).numpy(),
+                                             SegmentConfig()), np.int32))
+    return np.stack(imgs), segs
+
+
+def _agree(got, want):
+    """(survive agreement, max |prob_target difference|) of two outcome sets."""
+    return (float(np.mean(np.asarray(got[0]) == np.asarray(want[0]))),
+            float(np.abs(np.asarray(got[1], np.float64) - np.asarray(want[1])).max()))
+
+
+def parallel_world1(port):
+    """A world of 1 on NCCL: the four sharded evals at full width against
+    the engine, the f32 check, and evals/s. Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.parallel import (
+        make_mesh,
+        multihost,
+        sharded_knockout_eval,
+        sharded_knockout_eval_multi,
+        sharded_window_eval,
+        sharded_window_eval_multi,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert multihost.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    mesh = make_mesh()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": list(mesh.shape)}
+    bundle = create_model("resnet101", "imagenet", dtype=torch.bfloat16)
+    engine = SaliencyEngine(bundle, bundle.init(SEED), mask_batch=MASK_BATCH)
+    imgs, segs = _parallel_images(range(SEED + 200, SEED + 200 + PARALLEL_IMAGES))
+    targets = engine.predict(imgs).argmax(axis=1).astype(np.int32)
+    ss = [int(sg.max()) + 1 for sg in segs]
+    widths = np.asarray([int(0.4 * s) for s in ss], np.int32)
+    img, seg, s, width, target = imgs[0], segs[0], ss[0], int(widths[0]), int(targets[0])
+    firsts = masking.sample_window_starts_host(SEED, NUM_SAMPLES, s, width)
+    ids = masking.sample_knockout_ids_host(SEED, NUM_SAMPLES, 1, s)
+    mfirsts = np.stack([masking.sample_window_starts_host(SEED + i, PARALLEL_MULTI_K, ss[i],
+                                                          int(widths[i]))
+                        for i in range(PARALLEL_IMAGES)])
+    mids = np.stack([masking.sample_knockout_ids_host(SEED + i, PARALLEL_MULTI_K, 1, ss[i])
+                     for i in range(PARALLEL_IMAGES)])
+    lg = (engine.folded_logits, engine.variables)
+    calls = {
+        "window": lambda: sharded_window_eval(mesh, *lg, img, seg, firsts, width, target),
+        "knockout": lambda: sharded_knockout_eval(mesh, *lg, img, seg, ids, target),
+        "window_multi": lambda: sharded_window_eval_multi(mesh, *lg, imgs, np.stack(segs),
+                                                          mfirsts, widths, targets),
+        "knockout_multi": lambda: sharded_knockout_eval_multi(mesh, *lg, imgs, np.stack(segs),
+                                                              mids, targets)}
+    _reset_launches()
+    got = {k: fn() for k, fn in calls.items()}
+    launches = _launches()
+    refs = {"window": engine.eval_window_masks(img, seg, firsts, width, target),
+            "knockout": engine.eval_knockout_masks(img, seg, ids, target)}
+    for k, ref in (("window_multi", engine.eval_window_masks_multi(imgs, segs, mfirsts, widths,
+                                                                   targets)),
+                   ("knockout_multi", engine.eval_knockout_masks_multi(imgs, segs, mids,
+                                                                       targets))):
+        refs[k] = types.SimpleNamespace(survived=np.stack([r.survived for r in ref]),
+                                        prob_target=np.stack([r.prob_target for r in ref]))
+    out["checks"] = {}
+    for k, ref in refs.items():
+        agree, err = _agree(got[k], (ref.survived, ref.prob_target))
+        out["checks"][k] = {"agree": agree, "prob_err": err}
+        if not (agree >= PARALLEL_AGREE and err <= PARALLEL_PROB_TOL):
+            raise AssertionError(f"world 1 {k}: agreement {agree}, prob_target err {err}")
+    for k in ("window", "knockout"):
+        if got[k][2] != int(got[k][0].sum()):
+            raise AssertionError(f"world 1 {k}: count {got[k][2]} != {int(got[k][0].sum())}")
+
+    def rate(fn, reps=3):
+        fn()
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return NUM_SAMPLES / float(np.median(ts))
+
+    out["evals_per_s"] = {"sharded": rate(calls["window"])}
+    for mb in (NUM_SAMPLES, MASK_BATCH):
+        engine.mask_batch = mb
+        out["evals_per_s"][f"engine_mask_batch_{mb}"] = rate(
+            lambda: engine.eval_window_masks(img, seg, firsts, width, target))
+    del engine
+    torch.cuda.empty_cache()
+
+    b50 = create_model("resnet50", "imagenet", dtype=torch.float32)
+    e50 = SaliencyEngine(b50, b50.init(SEED), mask_batch=PARALLEL_F32_K,
+                         compute_dtype=torch.float32)
+    t50 = int(e50.predict(img[None]).argmax())
+    f = firsts[:PARALLEL_F32_K]
+    before = _launches()
+    sharded = sharded_window_eval(mesh, e50.folded_logits, e50.variables, img, seg, f, width,
+                                  t50, compute_dtype=torch.float32)
+    for k, v in _launches().items():
+        launches[k] += v - before[k]
+    ref = e50.eval_window_masks(img, seg, f, width, t50)
+    err = float(np.abs(sharded[1] - ref.prob_target).max())
+    out["checks"]["f32_resnet50"] = {"labels_equal": bool(np.array_equal(sharded[0],
+                                                                          ref.survived)),
+                                     "prob_err": err}
+    if not (np.array_equal(sharded[0], ref.survived) and err <= PARALLEL_F32_TOL):
+        raise AssertionError(f"world 1 f32: {out['checks']['f32_resnet50']}")
+    out["launches"] = launches
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def parallel_world2(rank, port, workdir):
+    """One rank of two on gloo sharing the card: the BO loop's two
+    shardings and two attributions through the API, each against its
+    unsharded call on this rank, then the sweep CLI's runs of
+    ``workdir/runs.json``. Prints one JSON line."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from network_interpretation_imagenet_tpu_torch.cli import saliency_sweep as sweep_cli
+    from network_interpretation_imagenet_tpu_torch.config import BOConfig
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.parallel import make_mesh, multihost
+    from network_interpretation_imagenet_tpu_torch.saliency import bo_pipeline, gradient
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.sanity import spearman_abs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    coordinator = f"127.0.0.1:{port}"
+    assert multihost.initialize_distributed(coordinator, 2, rank, backend="gloo")
+    out = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+    # The API's checks first: the sweeps below then find this process's
+    # libraries warm, as the single-process sweep does.
+    mesh = make_mesh()
+    bundle = create_model("resnet101", "imagenet", dtype=torch.bfloat16)
+    engine = SaliencyEngine(bundle, bundle.init(SEED), mask_batch=MASK_BATCH)
+    imgs, segs = _parallel_images(range(SEED + 300, SEED + 300 + SWEEP_BATCH))
+    targets = engine.predict(imgs).argmax(axis=1)
+    seeds = [SEED + i for i in range(SWEEP_BATCH)]
+    cfg = BOConfig()
+    _reset_launches()
+    multi = bo_pipeline.bo_window_saliency_multi(engine, list(imgs), segs, cfg, targets=targets,
+                                                 per_image_seeds=seeds, mesh=mesh)
+    single = bo_pipeline.bo_window_saliency(engine, imgs[0], segs[0], cfg, seed=SEED,
+                                            target=int(targets[0]), proposals_per_iter=2,
+                                            mesh=mesh)
+    grad = gradient.attribute_batch(engine.bundle.logits, engine.variables, imgs, targets,
+                                    "gradient", mesh=mesh)
+    rise = gradient.mask_method_batch(engine.folded_logits, engine.variables, imgs, targets,
+                                      "rise", bundle=engine.bundle, seeds=seeds, mesh=mesh)
+    out["api_launches"] = _launches()
+    # The unsharded calls, and the engine's scores at the sharded runs' starts.
+    multi_ref = bo_pipeline.bo_window_saliency_multi(engine, list(imgs), segs, cfg,
+                                                     targets=targets, per_image_seeds=seeds)
+    single_ref = bo_pipeline.bo_window_saliency(engine, imgs[0], segs[0], cfg, seed=SEED,
+                                                target=int(targets[0]), proposals_per_iter=2)
+    score_err, same = 0.0, []
+    traces = [(j, o, tr, tr_ref) for j, ((o, tr), (_, tr_ref)) in enumerate(zip(multi,
+                                                                                multi_ref))]
+    traces.append((0, single[0], single[1], single_ref[1]))   # the proposal-sharded loop
+    for j, o, tr, tr_ref in traces:
+        want = engine.eval_window_masks(imgs[j], segs[j], tr.xp.astype(np.int32), o.width,
+                                        int(targets[j])).prob_target
+        score_err = max(score_err, float(np.abs(tr.yp - want).max()))
+        same.append(bool(np.array_equal(tr.xp, tr_ref.xp)))
+    out["bo"] = {"score_err": score_err, "same_trace_as_unsharded": same}
+    if not score_err <= BO_SCORE_TOL:
+        raise AssertionError(f"rank {rank} BO: a sharded score strays {score_err}")
+    grad_ref = gradient.attribute_batch(engine.bundle.logits, engine.variables, imgs, targets,
+                                        "gradient")
+    rise_ref = gradient.mask_method_batch(engine.folded_logits, engine.variables, imgs,
+                                          targets, "rise", bundle=engine.bundle, seeds=seeds)
+    g, gr = grad.float().cpu().numpy(), grad_ref.float().cpu().numpy()
+    r, rr = rise.float().cpu().numpy(), rise_ref.float().cpu().numpy()
+    out["attr"] = {
+        "gradient_err": float(np.abs(g - gr).max() / np.abs(gr).max()),
+        "gradient_rho": min(spearman_abs(g[i], gr[i]) for i in range(len(g))),
+        "rise_err": float(np.abs(r - rr).max() / np.abs(rr).max())}
+    a = out["attr"]
+    if not (a["gradient_err"] <= SERVE_BF16_ATTR_TOL and a["gradient_rho"] >= SERVE_BF16_ATTR_RHO
+            and a["rise_err"] <= ATTR_B2_TOL):
+        raise AssertionError(f"rank {rank} attributions with a mesh: {a}")
+    join = ["--coordinator", coordinator, "--num-processes", "2", "--process-id", str(rank),
+            "--dist-backend", "gloo"]
+    with open(os.path.join(workdir, "runs.json")) as f:
+        runs = json.load(f)
+    del engine
+    torch.cuda.empty_cache()
+    for name, argv in runs.items():
+        _reset_launches()
+        t0 = time.perf_counter()
+        rc = quiet(lambda: sweep_cli.main(argv + join + ["--out", os.path.join(workdir, name)]))
+        out["runs"][name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                             "launches": _launches()}
+        if rc != 0:
+            raise AssertionError(f"rank {rank} {name}: exit {rc}")
+
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def parallel_worker(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--dir", default=None)
+    args = ap.parse_args(argv)
+    if args.world == 1:
+        return parallel_world1(args.port)
+    return parallel_world2(args.rank, args.port, args.dir)
+
+
+def _journal_rows(path):
+    with open(path) as f:
+        return {r["index"]: r for r in map(json.loads, f) if r.get("event") == "image_done"}
+
+
+def parallel_phase(smi, by_path):
+    """[parallel]: see the module docstring, item 26."""
+    import tempfile
+
+    from network_interpretation_imagenet_tpu_torch.cli import saliency_sweep as sweep_cli
+    from network_interpretation_imagenet_tpu_torch.gp import kron
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import localization_score
+
+    t_phase = time.perf_counter()
+    lines = []
+    w1 = _parallel_spawn([["--world", "1", "--port", str(_free_port())]], 600)[0]
+    launches = dict(w1["launches"])
+    ev = w1["evals_per_s"]
+    lines.append(f"world 1 ({w1['backend']}, mesh {w1['mesh']}): "
+                 + ", ".join(f"{k} agreement {v.get('agree', v.get('labels_equal'))} "
+                             f"prob_target err {v['prob_err']:.3g}"
+                             for k, v in w1["checks"].items())
+                 + f"; launches {json.dumps(w1['launches'])}; evals/s (ResNet-101 224 bf16, "
+                 f"{NUM_SAMPLES} windows): sharded {ev['sharded']:.1f}, engine mask_batch "
+                 f"{NUM_SAMPLES} {ev[f'engine_mask_batch_{NUM_SAMPLES}']:.1f}, mask_batch "
+                 f"{MASK_BATCH} {ev[f'engine_mask_batch_{MASK_BATCH}']:.1f}")
+
+    base = ["--synthetic", "--arch", "resnet101", "--num-images", str(PARALLEL_IMAGES),
+            "--num_mask_samples", str(NUM_SAMPLES), "--gp-heatmaps"]
+    runs = {"multihost": base + ["--multihost"],
+            "data_parallel": base + ["--data-parallel"],
+            "bo": ["--synthetic", "--arch", "resnet101", "--num-images", str(PARALLEL_IMAGES),
+                   "--bo", "--image-batch", str(SWEEP_BATCH), "--data-parallel", "--no-journal"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if quiet(lambda: sweep_cli.main(base + ["--out", f"{tmp}/single"])) != 0:
+            raise AssertionError("the single-process sweep failed")
+        single_s = time.perf_counter() - t0
+        with open(f"{tmp}/runs.json", "w") as f:
+            json.dump(runs, f)
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _parallel_spawn([["--world", "2", "--rank", str(r), "--port", str(port),
+                                  "--dir", tmp] for r in range(2)], 900)
+        world2_s = time.perf_counter() - t0
+        for rk in ranks:
+            for run in list(rk["runs"].values()) + [{"launches": rk["api_launches"]}]:
+                for k, v in run["launches"].items():
+                    launches[k] += v
+
+        def result(name):
+            with open(f"{tmp}/{name}/sweep_result.json") as f:
+                return json.load(f)
+
+        single = result("single")
+        single_rows = _journal_rows(f"{tmp}/single/sweep_journal.jsonl")
+        with np.load(f"{tmp}/single/gp_heatmaps.npz") as z:
+            single_heat = dict(zip(z["indices"].tolist(), z["heatmaps"]))
+        # --multihost: each image whole on one rank, so rows and heatmaps equal.
+        merged = result("multihost")
+        counts = ("images_total", "images_explained", "images_skipped_misclassified",
+                  "images_failed")
+        if any(merged[k] != single[k] for k in counts) or merged["process_count"] != 2:
+            raise AssertionError(f"--multihost merge {merged} vs single {single}")
+        rank_p50 = []
+        for r in range(2):
+            with open(f"{tmp}/multihost/sweep_result.rank{r}.json") as f:
+                part = json.load(f)
+            rank_p50.append(part["p50_latency_s"])
+            with np.load(f"{tmp}/multihost/gp_heatmaps.rank{r}.npz") as z:
+                for i, heat in zip(z["indices"].tolist(), z["heatmaps"]):
+                    gt = (58, 46, 104, 116)
+                    if not (np.array_equal(heat, single_heat[i]) and np.array_equal(
+                            localization_score(heat, gt)[1],
+                            localization_score(single_heat[i], gt)[1])):
+                        raise AssertionError(f"--multihost image {i}: heatmap differs")
+            for row in part["per_image"]:
+                want = single_rows[row["index"]]
+                if any(row[k] != want[k] for k in ("target", "num_segments", "survival")):
+                    raise AssertionError(f"--multihost row {row} vs {want}")
+        # --data-parallel: 512 / 512 masks per image, bf16.
+        dp = result("data_parallel")
+        dp_rows = _journal_rows(f"{tmp}/data_parallel/sweep_journal.rank0.jsonl")
+        worst = max(abs(dp_rows[i]["survival"] - single_rows[i]["survival"]) for i in dp_rows)
+        if dp["images_explained"] != single["images_explained"] or worst > 1 - PARALLEL_AGREE:
+            raise AssertionError(f"--data-parallel rows: worst survival gap {worst}")
+        with np.load(f"{tmp}/data_parallel/gp_heatmaps.npz") as z:
+            heats = z["heatmaps"]
+            gp_mean = z["gp_mean"]
+        _, ref_mean, _, _ = kron.fit_posterior_batch(heats, iters=20)
+        ref_mean = ref_mean.cpu().numpy()
+        gp_err = float(np.abs(gp_mean - ref_mean).max() / max(1.0, np.abs(ref_mean).max()))
+        if not gp_err <= GP_TOL:
+            raise AssertionError(f"--data-parallel GP pass with a mesh: error {gp_err}")
+        bo = result("bo")
+        if bo["images_explained"] != PARALLEL_IMAGES or bo["images_failed"]:
+            raise AssertionError(f"--bo --data-parallel: {bo}")
+    if not (launches["masked_batch"] > 0 and launches["bottleneck_chain"] > 0):
+        raise AssertionError(f"[parallel]: B1 or B2 never launched: {launches}")
+    by_path["parallel"] = launches
+    for rk in ranks:
+        lines.append(f"rank {rk['rank']} ({rk['backend']}): " + ", ".join(
+            f"{name} {run['seconds']:.2f} s launches {json.dumps(run['launches'])}"
+            for name, run in rk["runs"].items())
+            + f"; API launches {json.dumps(rk['api_launches'])}, BO {json.dumps(rk['bo'])}, "
+            f"attributions {json.dumps(rk['attr'])}")
+    lines.append(f"single-process sweep {single_s:.2f} s ({single['evals_per_sec']:.1f} evals/s, "
+                 f"p50 {single['p50_latency_s'] * 1e3:.1f} ms); two gloo ranks on one card "
+                 f"{world2_s:.2f} s: --multihost merged {merged['evals_per_sec']:.1f} evals/s, "
+                 f"pooled p50 {merged['p50_latency_s'] * 1e3:.1f} ms, per-rank p50 "
+                 + " / ".join(f"{p * 1e3:.1f}" for p in rank_p50)
+                 + f" ms; --data-parallel {dp['evals_per_sec']:.1f} evals/s, worst survival gap "
+                 f"{worst:.4f}, GP pass with the mesh vs unsharded {gp_err:.3g}; --bo "
+                 f"--data-parallel {bo['evals_per_sec']:.1f} evals/s")
+    log(f"[parallel] {smi}: " + "; ".join(lines)
+        + f"; launches {json.dumps(launches)}; {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3384,6 +3845,7 @@ def main() -> int:
     gen_small_phase(smi, paths)
     serve_phase(engine, normalized, seg_np, target, smi, paths)
     train_phase(normalized, seg_np, smi, paths)
+    parallel_phase(smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
@@ -3412,4 +3874,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
     sys.exit(main())

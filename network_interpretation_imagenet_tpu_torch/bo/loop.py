@@ -17,6 +17,18 @@ Two drivers:
     the host, so every buffer index is a Python int, and the random integers
     come in as one tensor (:func:`window_draws`). On the card the program is
     captured once per input shape as one CUDA graph and replayed.
+
+With a mesh (``parallel.make_mesh``) the fused loop shards over its data
+axis in one of two ways, as in the JAX package. One image: each batch of
+starts (the pre-samples, each iteration's q proposals) pads with 0 to a
+multiple of the data-axis size, each rank evaluates its slice, and an
+all-gather gives every rank all outcomes; the GP refit and the proposals
+replicate. That loop has a collective inside, so it runs eagerly on the card
+under every backend, with no CUDA graph: gloo's collectives cannot be
+captured, and NCCL's would tie a graph to one communicator. N images
+(``batch_images``): each rank runs its N/d loops with no collective inside,
+as one CUDA graph on the card at any world size, and one all-gather after
+the loop brings every rank all N traces.
 """
 
 from __future__ import annotations
@@ -37,6 +49,11 @@ from network_interpretation_imagenet_tpu_torch.device import resolve_device
 from network_interpretation_imagenet_tpu_torch.gp import exact
 from network_interpretation_imagenet_tpu_torch.gp.kernels import full_f32
 from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    axis_size,
+    shard_batch,
+)
 from network_interpretation_imagenet_tpu_torch.saliency.engine import outcomes
 
 LENGTHSCALE_GRID = BOConfig.lengthscale_grid
@@ -161,14 +178,22 @@ class FusedWindowBO:
     of a shape, and a one-shot call costs one eager run and no capture. A
     runner keeps the graphs of its last ``MAX_GRAPHS`` shapes. A failed
     capture raises. On the CPU the program runs eagerly (``cuda_graph``
-    is False)."""
+    is False).
+
+    ``mesh``: the collective runner of every rank (same inputs on each; see
+    the module docstring). With ``batch_images`` the image count must split
+    over the data axis (``bo_window_saliency_multi`` pads it); without, the
+    starts of each forward shard and the runner never captures a graph."""
 
     def __init__(self, outcomes_fn: OutcomesFn, max_candidates: int, n_pre_samples: int = 3,
                  n_iters: int = 10, alpha: float = 1e-5, epsilon: float = 1e-7,
                  lengthscale_grid=LENGTHSCALE_GRID, proposals_per_iter: int = 1,
                  batch_images: bool = False, compute_dtype: torch.dtype = torch.float32,
-                 device=None) -> None:
+                 device=None, mesh=None, data_axis: str = "data") -> None:
         self.device = resolve_device(device)
+        self.mesh, self.data_axis = mesh, data_axis
+        # One image on a mesh: the starts of each forward shard over it.
+        self.proposal_mesh = None if batch_images else mesh
         self.outcomes_fn = outcomes_fn
         self.n_pre, self.n_iters = int(n_pre_samples), int(n_iters)
         self.q = int(proposals_per_iter)
@@ -176,7 +201,7 @@ class FusedWindowBO:
         self.alpha, self.epsilon = float(alpha), float(epsilon)
         self.batch_images = batch_images
         self.compute_dtype = compute_dtype
-        self.cuda_graph = self.device.type == "cuda"
+        self.cuda_graph = self.device.type == "cuda" and self.proposal_mesh is None
         self.ls_grid = torch.tensor(lengthscale_grid, dtype=torch.float32, device=self.device)
         self.cand = torch.arange(max_candidates, dtype=torch.float32, device=self.device)
         # input shapes -> None (run once, eagerly) or (CUDAGraph, static inputs, static outputs)
@@ -201,6 +226,13 @@ class FusedWindowBO:
         if inputs[5].shape[1] != self.max_obs:
             raise ValueError(f"fused BO: {inputs[5].shape[1]} draws per image, need "
                              f"{self.max_obs} (n_pre_samples + n_iters * q)")
+        if self.batch_images and self.mesh is not None:
+            # Image sharding: this rank's loops, then one all-gather.
+            local = tuple(shard_batch(self.mesh, t, self.data_axis) for t in inputs)
+            out = self._on_card(local) if self.cuda_graph else self._program(*local)
+            xs, ys, survived = all_gather_rows(self.mesh, list(out), self.data_axis,
+                                               fingerprint=inputs)
+            return xs, ys, survived, self.max_obs
         xs, ys, survived = self._on_card(inputs) if self.cuda_graph else self._program(*inputs)
         if not self.batch_images:
             xs, ys, survived = xs[0], ys[0], survived[0]
@@ -228,7 +260,8 @@ class FusedWindowBO:
         return tuple(t.clone() for t in out)
 
     def _program(self, images, segments, widths, targets, uppers, draws):
-        """The loop on [N]-batched device tensors; no host synchronisation."""
+        """The loop on [N]-batched device tensors; no host synchronisation
+        (but for the all-gathers of a proposal mesh)."""
         n, h, w, c = images.shape
         m, q, dev = self.max_obs, self.q, self.device
         xs = torch.zeros((n, m), device=dev)
@@ -238,7 +271,7 @@ class FusedWindowBO:
         cand_ok = self.cand[None, :] <= uppers[:, None]
         count = 0
 
-        def eval_starts(firsts):
+        def forward(firsts):
             """[N, k] starts -> (prob_target, survived) [N, k], one forward."""
             k = firsts.shape[1]
             f = firsts.to(torch.int32).contiguous()
@@ -248,6 +281,23 @@ class FusedWindowBO:
                              out=batch[i * k:(i + 1) * k])
             prob, surv = self.outcomes_fn(batch, targets[:, None].expand(n, k).reshape(-1))
             return prob.view(n, k), surv.view(n, k)
+
+        def eval_starts(firsts):
+            """:func:`forward`, or on a proposal mesh: the starts padded with
+            0 to a multiple of the data axis, this rank's slice evaluated,
+            every slice gathered and the pad trimmed."""
+            if self.proposal_mesh is None:
+                return forward(firsts)
+            k = firsts.shape[1]
+            d = axis_size(self.proposal_mesh, self.data_axis)
+            total = -(-k // d) * d
+            f = torch.cat([firsts, firsts.new_zeros((n, total - k))], dim=1)
+            cols = shard_batch(self.proposal_mesh, torch.arange(total, device=dev),
+                               self.data_axis)
+            prob, surv = forward(f[:, cols])
+            prob_all, surv_all = all_gather_rows(self.proposal_mesh, [prob.T, surv.T],
+                                                 self.data_axis, fingerprint=(f, targets))
+            return prob_all.T[:, :k], surv_all.T[:, :k]
 
         def record_batch(xs_new):
             nonlocal gp, count

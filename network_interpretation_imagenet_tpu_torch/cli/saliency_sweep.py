@@ -1,14 +1,34 @@
 """Val-set saliency sweep CLI (port of ``cli/saliency_sweep.py`` of the JAX
-package, without its multi-host and data-parallel lanes): superpixel-mask,
-BO or attribution saliency over many images, reporting mean IOU, survival,
-p50 latency and evals per second; per-image failures and misclassifications
-are skipped and counted, not fatal (the reference aborts,
-``bayesian_active_learning_imagenet.py:221``).
+package): superpixel-mask, BO or attribution saliency over many images,
+reporting mean IOU, survival, p50 latency and evals per second; per-image
+failures and misclassifications are skipped and counted, not fatal (the
+reference aborts, ``bayesian_active_learning_imagenet.py:221``).
 
     python -m network_interpretation_imagenet_tpu_torch.cli.saliency_sweep \\
         --data tests/fixtures/imagenet_loc | --synthetic [--num-images 8] \\
         [--mode knockout | --bo | --attribute METHOD] [--image-batch N] \\
         [--journal PATH --resume] [--gp-heatmaps] [--device cpu] --out outputs
+
+Several processes, one per device (``torch.distributed``):
+
+* ``--multihost`` strides the images across processes (process i sweeps
+  images i, i+P, ...): each writes ``sweep_result.rank<i>.json`` (and a
+  rank-suffixed journal and GP artifacts) and rank 0 merges them into
+  ``sweep_result.json``. The process group comes from ``--coordinator
+  host:port --num-processes P --process-id i``, or from torchrun's
+  environment; without either it exits 2.
+* ``--data-parallel`` shards each image's masks (the BO and attribution
+  lanes: each flush's images) over a mesh of every process
+  (``parallel.make_mesh``); every rank sweeps the same images and rank 0
+  writes the result. Started by torchrun (or the coordinator flags); in a
+  lone process the mesh is a world of one.
+* Both: the mesh spans every process while each sweeps its own stride, so
+  no sharded call meets replicated inputs and every image fails (counted,
+  the run goes on), as in the JAX package, whose mesh then spans every
+  process's devices and cannot fetch a result.
+
+``--dist-backend`` overrides the process group's backend (NCCL on the card,
+gloo on the CPU): gloo lets two ranks share one card, which NCCL refuses.
 
 :func:`compute` runs the sweep and the GP-surrogate passes; :func:`main`
 writes ``sweep_result.json`` (the JAX package's keys), the journal and the
@@ -19,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 
 import numpy as np
@@ -51,6 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--num-images", type=int, default=8)
     p.add_argument("--bbox_threshold", type=int, default=180)
     p.add_argument("--trace", action="store_true", help="emit per-phase JSON logs")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard each image's mask batch over every process (a mesh of the "
+                        "process group: torchrun's, or the coordinator flags')")
     p.add_argument("--image-batch", type=int, default=1,
                    help="fuse this many images' mask banks into one forward")
     p.add_argument("--mode", default="window", choices=["window", "knockout"],
@@ -111,6 +135,17 @@ def parse_args(argv=None):
                    help="restore finished images from the journal and sweep only the rest "
                         "(per-image seeds derive from dataset indices, so results match an "
                         "uninterrupted run)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process sweep: join torch.distributed from torchrun's "
+                        "environment (or the --coordinator/--num-processes/--process-id "
+                        "flags), stride the image axis across processes, write per-rank "
+                        "results, and merge on rank 0")
+    p.add_argument("--coordinator", default=None, help="(--multihost) coordinator host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (default: nccl with --device cuda, "
+                        "gloo with --device cpu); gloo lets ranks share one card")
     args = p.parse_args(argv)
     if args.bo and args.attribute:
         p.error("--bo and --attribute are mutually exclusive sweep drivers")
@@ -183,32 +218,51 @@ def journal_config(args) -> dict:
     return jconfig
 
 
+def _world():
+    """(rank, process count) of this run (0, 1 without a process group)."""
+    from network_interpretation_imagenet_tpu_torch.parallel import multihost
+
+    return multihost.process_index(), multihost.process_count()
+
+
 def _open_journal(args):
-    """The sweep journal (None with --no-journal)."""
+    """The sweep journal (None with --no-journal); rank-suffixed in a run of
+    several processes (each journals, and resumes, its own work)."""
     if args.journal == "":
         return None
     from network_interpretation_imagenet_tpu_torch.saliency.journal import SweepJournal
 
     path = args.journal or os.path.join(args.out, "sweep_journal.jsonl")
+    rank, count = _world()
+    if count > 1:
+        root, ext = os.path.splitext(path)
+        path = f"{root}.rank{rank}{ext}"
     return SweepJournal(path, resume=args.resume, keep_heatmaps=keeps_heatmaps(args),
                         config=journal_config(args))
 
 
-def _dataset(args, spec, journal):
+def _dataset(args, spec, journal, indices=None):
     """(dataset iterable, dataset_indices): with ``--data`` the localization
     or image-folder dataset read ahead by ``--workers`` threads, journaled-done
-    images never decoded; otherwise the synthetic images."""
+    images never decoded; otherwise the synthetic images. ``indices``: this
+    process's stride of a multi-process sweep."""
     from network_interpretation_imagenet_tpu_torch.data.prefetch import prefetch
 
     if not (args.data and args.dataset == "imagenet"):
-        return _synthetic_dataset(args, spec, args.num_images, raw_u8=args.uint8_wire), None
+        dataset = _synthetic_dataset(args, spec, args.num_images, raw_u8=args.uint8_wire)
+        if indices is not None:
+            stride = set(indices)
+            dataset = (item for i, item in enumerate(dataset) if i in stride)
+        return dataset, indices
     dataset = common._cached_dataset(args.data, raw_u8=args.uint8_wire)
-    base = list(range(min(len(dataset), args.num_images)))
-    indices = None
+    n_total = min(len(dataset), args.num_images)
+    base = [i for i in (range(n_total) if indices is None else indices) if i < n_total]
     if journal is not None and journal.done:
         # A resumed sweep must not re-decode the images it only skips;
         # positions then map to dataset indices (seeds stay index-derived).
         base = indices = [i for i in base if i not in journal.done]
+    elif indices is not None:
+        indices = base
     return prefetch(dataset, num_workers=args.workers, indices=base), indices
 
 
@@ -223,14 +277,14 @@ def _gp_surrogate_pass(res, base_chunk, fields_fn) -> dict:
         time.perf_counter() - t0
 
 
-def _kron_fields(args, device):
+def _kron_fields(args, device, mesh):
     from network_interpretation_imagenet_tpu_torch.gp import kron
 
     def fields(heats, chunk):
         params, means, vars_ = [], [], []
         for lo in range(0, len(heats), chunk):
             p_c, m_c, v_c, _ = kron.fit_posterior_batch(heats[lo:lo + chunk], iters=args.gp_iters,
-                                                        lr=args.gp_lr, device=device)
+                                                        lr=args.gp_lr, device=device, mesh=mesh)
             params.extend(p_c)
             means.append(m_c.cpu().numpy())
             vars_.append(v_c.cpu().numpy())
@@ -241,7 +295,7 @@ def _kron_fields(args, device):
     return fields
 
 
-def _class_fields(args, device):
+def _class_fields(args, device, mesh):
     from network_interpretation_imagenet_tpu_torch.gp import variational as vgp
 
     def fields(heats, chunk):
@@ -255,14 +309,14 @@ def _class_fields(args, device):
         for lo in range(0, n_img, chunk):
             _, p_c, _ = vgp.fit_predict_batch(model, coords, ys[lo:lo + chunk],
                                               iters=args.gp_class_iters, lr=args.gp_lr,
-                                              return_models=False)
+                                              return_models=False, mesh=mesh)
             probs.append(p_c.cpu().numpy())
         return {"survive_proba": np.concatenate(probs).reshape(n_img, h, w)}
 
     return fields
 
 
-def run_sweep(args, engine, dataset, dataset_indices, journal):
+def run_sweep(args, engine, dataset, dataset_indices, journal, mesh=None):
     """The sweep ``args`` ask for: attribution, BO, or window/knockout."""
     from network_interpretation_imagenet_tpu_torch.saliency import sweep
 
@@ -270,7 +324,8 @@ def run_sweep(args, engine, dataset, dataset_indices, journal):
     common_kw = dict(bbox_threshold=args.bbox_threshold, max_images=args.num_images,
                      seed=args.seed, logger=PhaseLogger(enabled=args.trace),
                      keep_heatmaps=keeps_heatmaps(args), dataset_indices=dataset_indices,
-                     journal=journal, fidelity_steps=args.fidelity_steps if args.fidelity else 0)
+                     journal=journal, fidelity_steps=args.fidelity_steps if args.fidelity else 0,
+                     mesh=mesh)
     normalize = (spec.mean, spec.std) if args.uint8_wire else None
     if args.attribute:
         return sweep.attribution_sweep(
@@ -303,12 +358,19 @@ def run_sweep(args, engine, dataset, dataset_indices, journal):
 def compute(args):
     """Run the sweep and the GP-surrogate passes. Returns ``(payload, res,
     artifacts)``: the result JSON (the JAX package's keys), the
-    ``SweepResult``, and ``{name: arrays}`` of the GP passes' npz files."""
+    ``SweepResult``, and ``{name: arrays}`` of the GP passes' npz files.
+    In a multi-process run (see :func:`main`) these are this process's."""
+    from network_interpretation_imagenet_tpu_torch.parallel import make_mesh, multihost
+    from network_interpretation_imagenet_tpu_torch.parallel.mesh import axis_size
+
     engine = common.build_engine(args)
+    mesh = make_mesh(device=args.device) if args.data_parallel else None
+    strided = (list(multihost.process_strided_indices(args.num_images))
+               if args.multihost else None)
     journal = _open_journal(args)
     try:
-        dataset, indices = _dataset(args, DATASETS[args.dataset], journal)
-        res = run_sweep(args, engine, dataset, indices, journal)
+        dataset, indices = _dataset(args, DATASETS[args.dataset], journal, strided)
+        res = run_sweep(args, engine, dataset, indices, journal, mesh)
     finally:
         if journal is not None:
             journal.close()
@@ -323,9 +385,12 @@ def compute(args):
         if on and res.heatmaps:
             # One batched program per chunk of images: the whole sweep's fits
             # (the reference fits one image per process,
-            # gp_superpixel_data_imagenet.py:578-663).
+            # gp_superpixel_data_imagenet.py:578-663). On a mesh the chunk
+            # grows with the data axis, so each rank still fits ~chunk grids.
+            if mesh is not None:
+                chunk *= axis_size(mesh, "data")
             artifacts[key], seconds = _gp_surrogate_pass(res, chunk,
-                                                         fields_fn(args, engine.device))
+                                                         fields_fn(args, engine.device, mesh))
             payload[key] = {"images": len(artifacts[key]["indices"]),
                             "seconds": round(seconds, 3), "artifact": f"{key}.npz"}
     return payload, res, artifacts
@@ -338,11 +403,76 @@ def write_artifacts(args, payload, artifacts) -> None:
     common.emit_result(args.out, "sweep_result.json", payload)
 
 
-def main(argv=None):
+def _join(args) -> bool:
+    """Join the process group of a multi-process run (--multihost or
+    --data-parallel). False when --multihost finds no coordinator."""
+    from network_interpretation_imagenet_tpu_torch.parallel import multihost
+
+    if not (args.multihost or args.data_parallel):
+        return True
+    joined = multihost.initialize_distributed(args.coordinator, args.num_processes,
+                                              args.process_id, backend=args.dist_backend,
+                                              device=args.device)
+    if args.multihost and not joined:
+        return False
+    if args.multihost and multihost.process_count() > 1:
+        multihost.clear_stale_rank_result(args.out)
+        # init_process_group is no barrier: without one, rank 0's merge could
+        # read another rank's stale file of an earlier run.
+        multihost.barrier()
+    return True
+
+
+def _merge(args, payload, artifacts):
+    """Rank 0's payload of a --multihost run: every rank's result merged,
+    with this run's per-rank GP artifacts listed."""
+    from network_interpretation_imagenet_tpu_torch.parallel import multihost
+
+    count = multihost.process_count()
+    merged = multihost.merge_rank_results(args.out, count)
+    gp_infos = {k: payload.get(k) for k in ("gp_heatmaps", "gp_class_heatmaps")}
+    payload = {f.name: getattr(merged, f.name) for f in dataclasses.fields(merged)
+               if f.name not in ("per_image", "heatmaps")}
+    payload["per_image_count"] = merged.images_explained
+    payload["process_count"] = count
+    for key, info in gp_infos.items():
+        if info is not None:
+            # This run's ranks only: a glob would take an earlier, larger
+            # world's stale rank files.
+            info["artifacts"] = [f"{key}.rank{r}.npz" for r in range(count)
+                                 if os.path.exists(os.path.join(args.out, f"{key}.rank{r}.npz"))]
+            payload[key] = info
+    return payload
+
+
+def main(argv=None) -> int:
     args = parse_args(argv)
-    payload, _, artifacts = compute(args)
+    if not _join(args):
+        # No coordinator anywhere: refusing beats N processes each sweeping
+        # every image as rank 0, racing on --out.
+        print("error: --multihost could not initialize torch.distributed — pass "
+              "--coordinator/--num-processes/--process-id or set MASTER_ADDR, MASTER_PORT, "
+              "WORLD_SIZE and RANK (torchrun)", file=sys.stderr)
+        return 2
+    payload, res, artifacts = compute(args)
+    rank, count = _world()
+    if count > 1 and args.multihost:
+        from network_interpretation_imagenet_tpu_torch.parallel import multihost
+
+        os.makedirs(args.out, exist_ok=True)
+        for key, arrays in artifacts.items():
+            payload[key]["artifact"] = f"{key}.rank{rank}.npz"
+            np.savez_compressed(os.path.join(args.out, f"{key}.rank{rank}.npz"), **arrays)
+        multihost.write_rank_result(args.out, res)
+        if rank != 0:
+            return 0
+        common.emit_result(args.out, "sweep_result.json", _merge(args, payload, artifacts))
+        return 0
+    if rank != 0:
+        return 0   # --data-parallel: every rank holds the same result; rank 0 writes it
     write_artifacts(args, payload, artifacts)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -76,6 +76,17 @@ class BOConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The ("data", "model") mesh of ``parallel.make_mesh``: the mask and image
+    batches shard over ``data_axis``; ``model_parallel`` ranks per data shard
+    (1 = pure data parallelism)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The training harness's settings (reference ``args.py:83-117``'s
     optimizer group, ``generate_gp_training_data_cifar.py:81-234``)."""

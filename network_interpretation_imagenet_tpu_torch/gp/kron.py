@@ -35,6 +35,7 @@ import torch
 
 from network_interpretation_imagenet_tpu_torch.device import resolve_device
 from network_interpretation_imagenet_tpu_torch.gp.kernels import full_f32_fn
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import axis_size, map_sharded
 
 LENGTHSCALE_GRID = (2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -256,19 +257,32 @@ def predict_offgrid(params: KronGPParams, y_grid, points, device=None) -> torch.
 
 
 def fit_posterior_batch(y_grids, iters: int = 20, lr: float = 0.1,
-                        lengthscale_grid: Tuple[float, ...] = LENGTHSCALE_GRID, device=None):
+                        lengthscale_grid: Tuple[float, ...] = LENGTHSCALE_GRID, device=None,
+                        mesh=None, data_axis: str = "data"):
     """N pixel-GP fits and their exact posteriors as two batched programs:
     the sweep + Adam over a leading image axis (the candidates' bases are
     shared), then every image's posterior in its winner's basis. Returns
-    (params list[N], means [N, H, W], vars [N, H, W], losses [N, iters])."""
+    (params list[N], means [N, H, W], vars [N, H, W], losses [N, iters]).
+
+    With ``mesh`` (more than one rank on ``data_axis``, every rank passing
+    the same grids) the image axis pads to a multiple of the axis size with
+    repeats of the first grid and shards; the eigenbases replicate; one
+    all-gather gives every rank all N results."""
     y = _grid(y_grids, device)
     n, h, w = y.shape
     qh_all, qw_all, lam_all = _factored(lengthscale_grid, h, w, y.device)
-    best, (log_os, log_noise, mean), losses = _fit(qh_all, qw_all, lam_all, y, int(iters),
-                                                   float(lr))
-    e = lambda v: v[:, None, None]  # noqa: E731
-    means, vars_ = _posterior_core(qh_all[best], qw_all[best], lam_all[best], y,
-                                   e(torch.exp(log_os)), e(torch.exp(log_noise)), e(mean))
+
+    def run(y_local):
+        best, (log_os, log_noise, mean), losses = _fit(qh_all, qw_all, lam_all, y_local,
+                                                       int(iters), float(lr))
+        e = lambda v: v[:, None, None]  # noqa: E731
+        means, vars_ = _posterior_core(qh_all[best], qw_all[best], lam_all[best], y_local,
+                                       e(torch.exp(log_os)), e(torch.exp(log_noise)), e(mean))
+        return best, log_os, log_noise, mean, losses, means, vars_
+
+    sharded = mesh is not None and axis_size(mesh, data_axis) > 1
+    best, log_os, log_noise, mean, losses, means, vars_ = map_sharded(
+        mesh if sharded else None, run, [y], axis=data_axis)
     grid = torch.tensor(lengthscale_grid, dtype=torch.float32, device=y.device)
     log_ls = torch.log(grid[best])
     params = [KronGPParams(log_ls[i], log_os[i], log_noise[i], mean[i]) for i in range(n)]

@@ -29,6 +29,7 @@ from network_interpretation_imagenet_tpu_torch.device import resolve_device
 from network_interpretation_imagenet_tpu_torch.gp.exact import _cholesky
 from network_interpretation_imagenet_tpu_torch.gp.kernels import full_f32_fn, rbf_kernel
 from network_interpretation_imagenet_tpu_torch.gp.kron import adam_step
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import axis_size, map_sharded
 
 _GH_DEG = 20
 _GH_X, _GH_W = np.polynomial.hermite_e.hermegauss(_GH_DEG)
@@ -175,20 +176,31 @@ def predict_proba(model: VGPModel, x) -> torch.Tensor:
 
 
 def fit_predict_batch(model: VGPModel, x, ys01, x_test=None, iters: int = 30, lr: float = 0.1,
-                      return_models: bool = True):
+                      return_models: bool = True, mesh=None, data_axis: str = "data"):
     """N classification GPs, sharing the coordinates ``x`` [P, 2], the
     inducing grid and the start, fitted to labels ``ys01`` [N, P] and
     evaluated at ``x_test`` (default ``x``) as one batched program with a
     leading image axis. Returns (models list[N], or None with
-    ``return_models=False``; probs [N, T]; losses [N, iters])."""
+    ``return_models=False``; probs [N, T]; losses [N, iters]).
+
+    With ``mesh`` (more than one rank on ``data_axis``, every rank passing
+    the same labels) the image axis pads to a multiple of the axis size with
+    repeats of the first label vector and shards; coordinates, inducing grid
+    and start replicate; one all-gather gives every rank all N results."""
     dev = model.inducing.device
     xs = _points(x, dev)
     ys = _points(ys01, dev)
     xt = xs if x_test is None else _points(x_test, dev)
     n = ys.shape[0]
-    p0 = VGPParams(*(p.expand(n, *p.shape).contiguous() for p in model.params))
-    pf, losses = _fit(p0, model.inducing, xs, ys, int(iters), float(lr))
-    probs = _predict_proba_params(pf, model.inducing, xt)
+
+    def run(ys_local):
+        m = ys_local.shape[0]
+        p0 = VGPParams(*(p.expand(m, *p.shape).contiguous() for p in model.params))
+        pf, losses = _fit(p0, model.inducing, xs, ys_local, int(iters), float(lr))
+        return (*pf, _predict_proba_params(pf, model.inducing, xt), losses)
+
+    sharded = mesh is not None and axis_size(mesh, data_axis) > 1
+    *pf, probs, losses = map_sharded(mesh if sharded else None, run, [ys], axis=data_axis)
     if not return_models:
         return None, probs, losses
     models: List[VGPModel] = [VGPModel(VGPParams(*(p[i] for p in pf)), model.inducing)

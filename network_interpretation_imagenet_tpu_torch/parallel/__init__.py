@@ -1,7 +1,23 @@
-"""Parallelism (port of ``parallel/`` of the JAX package). One device for
-now: the train step. The mesh, the sharded engine and multi-process runs
-move to ``torch.distributed`` with ROADMAP.md section A, item 7."""
+"""Parallelism on ``torch.distributed`` (port of ``parallel/`` of the JAX
+package): one process per device, the ranks laid out as a ("data", "model")
+mesh (``parallel.mesh``). The mask and image batches of every explanation
+shard over "data" (``parallel.sharded_engine`` and the ``mesh=`` of the
+explanation functions), and val-set sweeps stride their images across
+processes (``parallel.multihost``). The train step runs on one device; its
+mesh (data and tensor parallelism) waits for ROADMAP.md section A, item 7.
+"""
 
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import (  # noqa: F401
+    make_mesh,
+    replicate,
+    shard_batch,
+)
+from network_interpretation_imagenet_tpu_torch.parallel.sharded_engine import (  # noqa: F401
+    sharded_knockout_eval,
+    sharded_knockout_eval_multi,
+    sharded_window_eval,
+    sharded_window_eval_multi,
+)
 from network_interpretation_imagenet_tpu_torch.parallel.train_step import (  # noqa: F401
     TrainState,
     make_sharded_train_step,

@@ -6,6 +6,8 @@ over window starts (3 pre-samples + 10 iterations), sum the evaluated
 windows' survive labels into the heatmap. The fused loop
 (:class:`bo.loop.FusedWindowBO`) runs the whole active-learning loop on the
 device, as one CUDA graph on the card; ``fused=False`` runs the host loop.
+With a mesh the fused loop shards over its data axis: the proposals of one
+image, or the images of a batch (see ``bo.loop``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from network_interpretation_imagenet_tpu_torch.bo.loop import (
 )
 from network_interpretation_imagenet_tpu_torch.config import BOConfig
 from network_interpretation_imagenet_tpu_torch.ops import aggregate
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import axis_size, pad_rows
 from network_interpretation_imagenet_tpu_torch.saliency.engine import (
     MaskEvalResult,
     SaliencyEngine,
@@ -33,18 +36,19 @@ from network_interpretation_imagenet_tpu_torch.saliency.pipeline import Saliency
 
 
 def fused_runner(engine: SaliencyEngine, max_candidates: int, cfg: BOConfig, q: int,
-                 batch_images: bool = False) -> FusedWindowBO:
-    """The fused runner of this engine and static config, built once and
-    kept in ``engine.fused_runners`` (with the CUDA graphs it captures)."""
+                 batch_images: bool = False, mesh=None,
+                 data_axis: str = "data") -> FusedWindowBO:
+    """The fused runner of this engine, static config and mesh, built once
+    and kept in ``engine.fused_runners`` (with the CUDA graphs it captures)."""
     key = (max_candidates, cfg.n_pre_samples, cfg.n_iters, cfg.alpha, cfg.epsilon,
-           tuple(cfg.lengthscale_grid), q, batch_images)
+           tuple(cfg.lengthscale_grid), q, batch_images, mesh, data_axis)
     if key not in engine.fused_runners:
         engine.fused_runners[key] = make_fused_window_bo(
             engine.masked_outcomes, max_candidates, n_pre_samples=cfg.n_pre_samples,
             n_iters=cfg.n_iters, alpha=cfg.alpha, epsilon=cfg.epsilon,
             lengthscale_grid=cfg.lengthscale_grid, proposals_per_iter=q,
             batch_images=batch_images, compute_dtype=engine.compute_dtype,
-            device=engine.device)
+            device=engine.device, mesh=mesh, data_axis=data_axis)
     return engine.fused_runners[key]
 
 
@@ -88,6 +92,7 @@ def bo_window_saliency(
     fused: bool = True,
     proposals_per_iter: int = 1,
     draws=None,
+    mesh=None,
 ) -> Tuple[SaliencyOutput, BOResult]:
     """BO saliency of one image: the aggregate output and the BO trace.
 
@@ -97,7 +102,11 @@ def bo_window_saliency(
     ``torch.Generator`` seeded with ``seed``, or from ``draws``
     (``n_pre_samples + n_iters·q`` integers in [0, upper]) when given.
     ``fused=False`` runs the host loop, whose draws are numpy's
-    ``RandomState(seed)`` as in the JAX package."""
+    ``RandomState(seed)`` as in the JAX package. ``mesh`` (fused only; every
+    rank calls with the same inputs): each forward's starts shard over the
+    mesh's data axis, so pair it with ``proposals_per_iter`` >= the ranks."""
+    if mesh is not None and not fused:
+        raise ValueError("bo_window_saliency: mesh= shards the fused loop; pass fused=True")
     segments = np.asarray(segments, np.int32)
     s = int(segments.max()) + 1
     width = int(window_fraction * s)
@@ -107,7 +116,7 @@ def bo_window_saliency(
 
     if fused:
         q = int(proposals_per_iter)
-        run = fused_runner(engine, next_pow2(upper + 1), cfg, q)
+        run = fused_runner(engine, next_pow2(upper + 1), cfg, q, mesh=mesh)
         if draws is None:
             draws = window_draws(torch.Generator().manual_seed(int(seed)), upper, run.max_obs)
         xs, ys, survived, count = run(np.asarray(image, np.float32), segments, width, target,
@@ -170,6 +179,8 @@ def bo_window_saliency_multi_async(
     targets=None,
     proposals_per_iter: int = 1,
     per_image_seeds=None,
+    mesh=None,
+    data_axis: str = "data",
 ):
     """Enqueue :func:`bo_window_saliency_multi`'s fused program and return a
     ``collect()`` closure that waits for it (one device-to-host copy).
@@ -183,7 +194,13 @@ def bo_window_saliency_multi_async(
     :func:`bo_window_saliency` call with seed ``per_image_seeds[j]`` (up to
     the rounding of a forward at another batch size); see
     :func:`_multi_draws` for the draws without it. The image axis is not
-    padded: the runner captures one graph per image count and shape."""
+    padded: the runner captures one graph per image count and shape.
+
+    ``mesh`` (every rank calling with the same inputs): the image axis pads
+    to a multiple of the data-axis size with repeats of image 0 (its
+    geometry, target and draws) and shards; each rank runs its slice of the
+    loops, with no collective inside, and one all-gather after the loop
+    gives every rank all N traces."""
     segs, ss, widths, uppers = _multi_geometry(segments_list, window_fraction)
     n = len(segs)
     if not isinstance(images, torch.Tensor):
@@ -193,9 +210,14 @@ def bo_window_saliency_multi_async(
     elif not isinstance(targets, torch.Tensor):
         targets = np.asarray(targets, np.int64)
     run = fused_runner(engine, next_pow2(int(uppers.max()) + 1), cfg, int(proposals_per_iter),
-                       batch_images=True)
+                       batch_images=True, mesh=mesh, data_axis=data_axis)
     draws = _multi_draws(seed, per_image_seeds, uppers, run.max_obs)
-    xs_d, ys_d, survived_d, count = run(images, np.stack(segs), widths, targets, uppers, draws)
+    operands = [images, np.stack(segs), widths, targets, uppers, draws]
+    if mesh is not None:
+        d = axis_size(mesh, data_axis)
+        total = -(-n // d) * d
+        operands = [pad_rows(torch.as_tensor(a), total) for a in operands]
+    xs_d, ys_d, survived_d, count = run(*operands)
 
     def collect():
         host_targets = targets.cpu().numpy() if isinstance(targets, torch.Tensor) else targets
@@ -215,6 +237,8 @@ def bo_window_saliency_multi(
     targets=None,
     proposals_per_iter: int = 1,
     per_image_seeds=None,
+    mesh=None,
+    data_axis: str = "data",
 ):
     """Fused BO saliency over N same-shape images in one program: dispatch
     and collect at once (see :func:`bo_window_saliency_multi_async`).
@@ -222,4 +246,4 @@ def bo_window_saliency_multi(
     return bo_window_saliency_multi_async(
         engine, images, segments_list, cfg, window_fraction=window_fraction, seed=seed,
         targets=targets, proposals_per_iter=proposals_per_iter,
-        per_image_seeds=per_image_seeds)()
+        per_image_seeds=per_image_seeds, mesh=mesh, data_axis=data_axis)()

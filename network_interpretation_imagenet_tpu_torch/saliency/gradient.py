@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from network_interpretation_imagenet_tpu_torch.ops.resize import resize_bilinear
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import map_sharded
 
 
 def variables_device(variables) -> torch.device:
@@ -490,17 +491,38 @@ def _image_batch_scaffold(images, targets, seeds, device):
     return images, targets, seeds, n
 
 
+def image_sharded(mesh, data_axis: str, fn: Callable, images: torch.Tensor,
+                  targets: torch.Tensor, seeds: list):
+    """``fn(images, targets, seeds)`` of the image-batched entries, sharded
+    over ``mesh``'s data axis when one is given (every rank passing the
+    same inputs): the image axis pads to a multiple of the axis size with
+    image 0, target 0 and seed 0, each rank runs its slice, and one
+    all-gather gives every rank all N outputs (JAX's ``shard_map`` over the
+    image axis). Each image keeps its own seed, whatever rank runs it."""
+    if mesh is None:
+        return fn(images, targets, seeds)
+    return map_sharded(mesh, lambda im, tg, sd: fn(im, tg, [int(v) for v in sd.tolist()]),
+                       [images, targets, torch.tensor(seeds, dtype=torch.int64)],
+                       fills=[None, 0, 0], axis=data_axis)
+
+
 def mask_method_batch(logits_fn, variables, images, targets, method: str, *, bundle=None,
-                      seeds=None, **kw) -> torch.Tensor:
+                      seeds=None, mesh=None, data_axis: str = "data", **kw) -> torch.Tensor:
     """N images' mask-batched attributions -> f32[N, H, W], one image after
     another (the JAX package's ``lax.map``): live memory stays at one image's
-    mask chunk. Hyperparameters as in :func:`_mask_one_body`."""
+    mask chunk. Hyperparameters as in :func:`_mask_one_body`. ``mesh``
+    shards the image axis (:func:`image_sharded`)."""
     dev = variables_device(variables)
     images, targets, seeds, n = _image_batch_scaffold(images, targets, seeds, dev)
     if n == 0:
         return torch.zeros((0, *images.shape[1:3]), dtype=torch.float32, device=dev)
     one = _mask_one_body(logits_fn, bundle, method, **kw)
-    return torch.stack([one(variables, images[i], int(targets[i]), seeds[i]) for i in range(n)])
+
+    def run(imgs, tgts, sds):
+        return torch.stack([one(variables, imgs[i], int(tgts[i]), sds[i])
+                            for i in range(imgs.shape[0])])
+
+    return image_sharded(mesh, data_axis, run, images, targets, seeds)
 
 
 def default_gradcam_layer(bundle, variables, image_shape) -> str:
@@ -518,12 +540,14 @@ def attribute_batch(logits_fn: Callable, variables: Any, images, targets,
                     samples: int = 16, noise_sigma: float = 0.15, magnitude: bool = False,
                     gradcam_layer: Optional[str] = None, seeds=None,
                     step_batch: Optional[int] = None,
-                    sample_batch: Optional[int] = None) -> torch.Tensor:
+                    sample_batch: Optional[int] = None, mesh=None,
+                    data_axis: str = "data") -> torch.Tensor:
     """N images' attribution maps -> f32[N, H, W]: the gradient methods as one
     stacked backward over the N images (``step_batch`` / ``sample_batch``
     bound it at N·chunk concurrent backwards), Grad-CAM one image after
     another at one resolved layer. ``seeds`` (default zeros) feed SmoothGrad
-    only; each image's result equals the single-image function's."""
+    only; each image's result equals the single-image function's. ``mesh``
+    shards the image axis (:func:`image_sharded`)."""
     if method not in BATCHABLE_METHODS:
         raise ValueError(f"unknown batchable method {method!r}; choose "
                          f"from {BATCHABLE_METHODS}")
@@ -531,18 +555,23 @@ def attribute_batch(logits_fn: Callable, variables: Any, images, targets,
     images, targets, seeds, n = _image_batch_scaffold(images, targets, seeds, dev)
     if n == 0:
         return torch.zeros((0, *images.shape[1:3]), dtype=torch.float32, device=dev)
-    if method in ("gradient", "grad_input"):
-        return _gradient_batch(logits_fn, variables, images, targets, method == "grad_input")
-    if method == "integrated":
-        return _integrated_batch(logits_fn, variables, images, targets, int(steps), None,
-                                 step_batch)
-    if method == "smoothgrad":
-        return _smoothgrad_batch(logits_fn, variables, images, targets, int(samples),
-                                 float(noise_sigma), seeds, bool(magnitude), sample_batch)
-    if bundle is None:
-        raise ValueError("method='gradcam' needs bundle=")
-    if gradcam_layer is None:
-        gradcam_layer = default_gradcam_layer(bundle, variables, tuple(images.shape[1:]))
-    return torch.stack([gradcam(bundle, variables, images[i], int(targets[i]),
-                                layer=gradcam_layer) for i in range(n)])
+    if method == "gradcam":
+        if bundle is None:
+            raise ValueError("method='gradcam' needs bundle=")
+        if gradcam_layer is None:
+            gradcam_layer = default_gradcam_layer(bundle, variables, tuple(images.shape[1:]))
+
+    def run(imgs, tgts, sds):
+        if method in ("gradient", "grad_input"):
+            return _gradient_batch(logits_fn, variables, imgs, tgts, method == "grad_input")
+        if method == "integrated":
+            return _integrated_batch(logits_fn, variables, imgs, tgts, int(steps), None,
+                                     step_batch)
+        if method == "smoothgrad":
+            return _smoothgrad_batch(logits_fn, variables, imgs, tgts, int(samples),
+                                     float(noise_sigma), sds, bool(magnitude), sample_batch)
+        return torch.stack([gradcam(bundle, variables, imgs[i], int(tgts[i]),
+                                    layer=gradcam_layer) for i in range(imgs.shape[0])])
+
+    return image_sharded(mesh, data_axis, run, images, targets, seeds)
 

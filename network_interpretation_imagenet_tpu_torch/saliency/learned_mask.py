@@ -29,6 +29,7 @@ from network_interpretation_imagenet_tpu_torch.gp.kron import adam_step
 from network_interpretation_imagenet_tpu_torch.ops.resize import resize_bilinear
 from network_interpretation_imagenet_tpu_torch.saliency.gradient import (
     _image_batch_scaffold,
+    image_sharded,
     as_image,
     variables_device,
 )
@@ -141,12 +142,14 @@ def learned_mask_batch_dispatch(logits_fn: Callable, variables: Any, images, tar
                                 l1: float = 0.05, tv: float = 0.1, tv_beta: float = 3.0,
                                 jitter: int = 4, max_shift: int = 4, baseline: str = "blur",
                                 blur_sigma: float = 10.0, seeds=None,
-                                compute_dtype: torch.dtype = torch.float32, shifts=None):
+                                compute_dtype: torch.dtype = torch.float32, shifts=None,
+                                mesh=None, data_axis: str = "data"):
     """N learned-mask optimizations, one image after another, left on the
     device: ``(heatmaps f32[N, H, W], masks f32[N, s, s], prob_orig f32[N],
     prob_masked f32[N], loss f32[N])``. ``seeds`` (default zeros) give each
     image the shifts of ``learned_mask_saliency(seed=...)``; ``shifts`` (a
-    list of N [iters, J, 2]) replaces them."""
+    list of N [iters, J, 2]) replaces them. ``mesh`` shards the image axis
+    (``gradient.image_sharded``); each image keeps its seed's shifts."""
     _check(mask_size, iters, jitter, max_shift, baseline)
     dev = variables_device(variables)
     images, targets, seeds, n = _image_batch_scaffold(images, targets, seeds, dev)
@@ -157,17 +160,25 @@ def learned_mask_batch_dispatch(logits_fn: Callable, variables: Any, images, tar
                 torch.zeros((0, mask_size, mask_size), dtype=torch.float32, device=dev), z, z, z)
     # jitter 0 is one unshifted copy, as in the JAX package.
     n_jit, n_shift = (max(int(jitter), 1), int(max_shift)) if jitter else (1, 0)
-    outs = []
-    for i in range(n):
-        sh = (learned_mask_shifts(seeds[i], iters, n_jit, n_shift) if shifts is None
-              else torch.as_tensor(np.asarray(shifts[i])))
-        base = gaussian_blur(images[i], blur_sigma) if baseline == "blur" else \
-            torch.zeros_like(images[i])
-        m, p_orig, p_masked, loss = _optimize(
-            logits_fn, variables, images[i], base, int(targets[i]), int(mask_size), int(iters),
-            float(lr), float(l1), float(tv), float(tv_beta), sh, compute_dtype)
-        outs.append((1.0 - resize_bilinear(m, (h, w)), m, p_orig, p_masked, loss))
-    return tuple(torch.stack(t) for t in zip(*outs))
+    # The given shifts travel with their images through the sharding as the
+    # image's position in the batch.
+    given = None if shifts is None else [torch.as_tensor(np.asarray(sh)) for sh in shifts]
+
+    def run(imgs, tgts, sds):
+        outs = []
+        for i in range(imgs.shape[0]):
+            sh = (learned_mask_shifts(sds[i], iters, n_jit, n_shift) if given is None
+                  else given[sds[i]])
+            base = gaussian_blur(imgs[i], blur_sigma) if baseline == "blur" else \
+                torch.zeros_like(imgs[i])
+            m, p_orig, p_masked, loss = _optimize(
+                logits_fn, variables, imgs[i], base, int(tgts[i]), int(mask_size), int(iters),
+                float(lr), float(l1), float(tv), float(tv_beta), sh, compute_dtype)
+            outs.append((1.0 - resize_bilinear(m, (h, w)), m, p_orig, p_masked, loss))
+        return tuple(torch.stack(t) for t in zip(*outs))
+
+    keys = seeds if given is None else list(range(n))
+    return image_sharded(mesh, data_axis, run, images, targets, keys)
 
 
 def learned_mask_saliency_batch(logits_fn: Callable, variables: Any, images, targets,

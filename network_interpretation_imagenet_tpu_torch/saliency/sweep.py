@@ -1,5 +1,5 @@
 """Val-set saliency sweep: many images through one engine (port of
-``saliency/sweep.py``, without its device mesh).
+``saliency/sweep.py``), optionally sharded over a mesh of ranks.
 
 Every ported explanation runs over a dataset here: random windows and
 knockouts (:func:`saliency_sweep`), the fused GP-EI BO loop
@@ -17,8 +17,15 @@ the engine's folded net, whose stride-1 Bottleneck stages are B2 chains.
 
 The reference aborts the whole run on the first misclassified image
 (``bayesian_active_learning_imagenet.py:221``); the sweep skips and records
-it. The JAX package's mesh lanes (``_sharded_*_saliency`` and the sharded
-flush) are not here; they come with multi-GPU work.
+it.
+
+With ``mesh`` (``parallel.make_mesh``, more than one rank) every rank runs
+the same sweep on the same images and the work of each image shards over
+the mesh's data axis: the window and knockout sweep's masks per image
+(``_sharded_*_saliency``) or per flush grid (``sharded_*_eval_multi``),
+synchronously, the BO sweep's and the attribution sweep's image axis per
+flush. A failed collective (``parallel.mesh.CollectiveError``) ends the run
+on every rank; it is never counted as one image's failure.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
 from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
 from network_interpretation_imagenet_tpu_torch.ops.preprocess import normalize as _normalize
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import CollectiveError, mesh_size
 from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
 from network_interpretation_imagenet_tpu_torch.saliency.pipeline import localization_score
 from network_interpretation_imagenet_tpu_torch.segment.common import (
@@ -124,6 +132,60 @@ def _unpack_item(item):
     return seq[0], seq[1], seq[2]
 
 
+def _fatal(e: Exception) -> None:
+    """Re-raise a failed collective: the ranks can no longer keep step, so
+    it ends the run instead of failing one image."""
+    if isinstance(e, CollectiveError):
+        raise e
+
+
+def _sharded_window_saliency(engine: SaliencyEngine, mesh, image, segments, num_samples: int,
+                             window_fraction: float, seed: int, target: int, firsts=None):
+    """Mask-parallel :func:`~saliency.pipeline.random_window_saliency` over a
+    mesh: the K windows through ``parallel.sharded_window_eval`` (B1 and the
+    engine's folded net on each rank's slice), the heatmap summed on the host."""
+    from network_interpretation_imagenet_tpu_torch.parallel import sharded_window_eval
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import MaskEvalResult
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import SaliencyOutput
+
+    segments = np.asarray(segments, np.int32)
+    s = int(segments.max()) + 1
+    width = int(window_fraction * s)
+    if firsts is None:
+        firsts = masking.sample_window_starts_host(seed, num_samples, s, width)
+    firsts = np.asarray(firsts, np.int32)
+    survived, probs, _ = sharded_window_eval(mesh, engine.folded_logits, engine.variables, image,
+                                             segments, firsts, width, target,
+                                             compute_dtype=engine.compute_dtype)
+    heat = aggregate.summed_superpixel_labels_np(segments, firsts, width, survived)
+    return SaliencyOutput(
+        segments=segments, num_segments=s,
+        eval=MaskEvalResult(survived=survived, preds=np.where(survived, target, -1),
+                            prob_target=probs, prob_max=np.full_like(probs, np.nan)),
+        heatmap=heat, firsts=firsts, width=width)
+
+
+def _sharded_knockout_saliency(engine: SaliencyEngine, mesh, image, segments, knock_ids,
+                               target: int):
+    """Knockout twin of :func:`_sharded_window_saliency`."""
+    from network_interpretation_imagenet_tpu_torch.parallel import sharded_knockout_eval
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import MaskEvalResult
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import SaliencyOutput
+
+    segments = np.asarray(segments, np.int32)
+    s = int(segments.max()) + 1
+    knock_ids = np.asarray(knock_ids, np.int32)
+    survived, probs, _ = sharded_knockout_eval(mesh, engine.folded_logits, engine.variables,
+                                               image, segments, knock_ids, target,
+                                               compute_dtype=engine.compute_dtype)
+    heat = aggregate.summed_knockout_labels_np(segments, knock_ids, survived)
+    return SaliencyOutput(
+        segments=segments, num_segments=s,
+        eval=MaskEvalResult(survived=survived, preds=np.where(survived, target, -1),
+                            prob_target=probs, prob_max=np.full_like(probs, np.nan)),
+        heatmap=heat, knock_ids=knock_ids)
+
+
 def _sweep_scaffold(journal, logger, keep_heatmaps):
     """(res, iou_m, surv_m, latencies, done, log) with journaled work
     restored: the common preamble of every sweep."""
@@ -167,6 +229,7 @@ def saliency_sweep(
     num_knockout: int = 1,
     journal=None,
     fidelity_steps: int = 0,
+    mesh=None,
 ) -> SweepResult:
     """Sweep (image, label, gt_bbox?) items; returns aggregate metrics.
 
@@ -193,6 +256,15 @@ def saliency_sweep(
     skips them: a resumed sweep's rows equal an uninterrupted run's.
     ``evals_per_sec`` counts only this run's work. ``fidelity_steps`` > 0
     scores every explained heatmap (deletion/insertion AUC, pointing game).
+
+    ``mesh`` with more than one rank (every rank sweeping the same images):
+    with ``image_batch`` <= 1 each image runs synchronously, its prediction
+    deciding the skip and its target (the label where there is one, as in
+    the JAX package), then its K masks sharded over the mesh
+    (``_sharded_*_saliency``); with ``image_batch`` > 1 each flush's N*K grid
+    shards (``sharded_*_eval_multi``). A mesh of one rank runs the
+    single-device paths above. ``dataset_indices`` then maps positions to a
+    process's stride of a multi-process sweep.
     """
     if mode not in ("window", "knockout"):
         raise ValueError(f"unknown sweep mode {mode!r}")
@@ -267,6 +339,7 @@ def saliency_sweep(
             heat = aggregate_plan(fl["seg"], fl["plan"], r.survived)
             finish_image(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
         except Exception as e:
+            _fatal(e)
             res.images_failed += 1
             log.emit({"event": "image_failed", "index": fl["i"], "error": repr(e)})
 
@@ -279,8 +352,13 @@ def saliency_sweep(
         fb, inflight_batch = inflight_batch, None
         try:
             preds = _host(fb["logits"]).argmax(axis=1)
-            results = engine.collect_multi(fb["handle"], fb["n"], fb["k"])
+            if fb["handle"] is not None:
+                survived_per_image = [r.survived for r in
+                                      engine.collect_multi(fb["handle"], fb["n"], fb["k"])]
+            else:   # the mesh's flush, gathered already
+                survived_per_image = fb["survived_per_image"]
         except Exception as e:
+            _fatal(e)
             res.images_failed += len(fb["metas"])
             log.emit({"event": "batch_failed", "indices": [m[0] for m in fb["metas"]],
                       "error": repr(e)})
@@ -290,9 +368,10 @@ def saliency_sweep(
                 pred = int(preds[j])
                 if skip(i, pred, label):
                     continue
-                surv = results[j].survived
+                surv = survived_per_image[j]
                 finish_image(i, pred, s, aggregate_plan(seg, plan, surv), surv, t0, img)
             except Exception as e:
+                _fatal(e)
                 res.images_failed += 1
                 log.emit({"event": "image_failed", "index": i, "error": repr(e)})
 
@@ -317,22 +396,43 @@ def saliency_sweep(
             plans = [sample_plan(seed + idxs[j], ss[j]) for j in range(len(batch))]
             logits_dev = engine.predict_logits_device(imgs_dev)
             targets_dev = torch.argmax(logits_dev, dim=1)
-            if is_knockout:
-                handle, n, k = engine.eval_knockout_masks_multi_async(
+            fb = {"handle": None, "n": len(batch), "k": num_mask_samples, "logits": logits_dev,
+                  "metas": list(zip(idxs, segs, ss, plans, labels, t0s, imgs))}
+            if on_mesh:
+                # The flush's N*K grid shards over the mesh, synchronously.
+                from network_interpretation_imagenet_tpu_torch.parallel import (
+                    sharded_knockout_eval_multi,
+                    sharded_window_eval_multi,
+                )
+
+                if is_knockout:
+                    survived_nk, _ = sharded_knockout_eval_multi(
+                        mesh, engine.folded_logits, engine.variables, np.stack(imgs),
+                        np.stack(segs), np.stack([p["ids"] for p in plans]), _host(targets_dev),
+                        compute_dtype=engine.compute_dtype)
+                else:
+                    survived_nk, _ = sharded_window_eval_multi(
+                        mesh, engine.folded_logits, engine.variables, np.stack(imgs),
+                        np.stack(segs), np.stack([p["firsts"] for p in plans]),
+                        np.asarray([p["width"] for p in plans], np.int32), _host(targets_dev),
+                        compute_dtype=engine.compute_dtype)
+                fb["survived_per_image"] = list(survived_nk)
+            elif is_knockout:
+                fb["handle"], _, _ = engine.eval_knockout_masks_multi_async(
                     imgs_dev, np.stack(segs), np.stack([p["ids"] for p in plans]), targets_dev)
             else:
-                handle, n, k = engine.eval_window_masks_multi_async(
+                fb["handle"], _, _ = engine.eval_window_masks_multi_async(
                     imgs_dev, np.stack(segs), np.stack([p["firsts"] for p in plans]),
                     np.asarray([p["width"] for p in plans], np.int32), targets_dev)
-            fb = {"handle": handle, "n": n, "k": k, "logits": logits_dev,
-                  "metas": list(zip(idxs, segs, ss, plans, labels, t0s, imgs))}
             collect_batch()  # the previous flush drains while this one computes
             inflight_batch = fb
         except Exception as e:
+            _fatal(e)
             res.images_failed += len(batch)
             log.emit({"event": "batch_failed", "indices": [b[0] for b in batch],
                       "error": repr(e)})
 
+    on_mesh = mesh_size(mesh) > 1
     for pos, item in enumerate(dataset):
         if max_images is not None and pos >= max_images:
             break
@@ -358,6 +458,24 @@ def saliency_sweep(
                 seg = np.asarray(segment_image(disp, seg_cfg, engine.device), np.int32)
             s = int(seg.max()) + 1
             plan = sample_plan(seed + i, s)
+            if on_mesh:
+                # Synchronous: the prediction decides the skip and the target
+                # before the masks shard over the mesh.
+                pred, _ = engine.predict_one(image)
+                if skip(i, pred, label):
+                    continue
+                target = int(label) if label is not None else pred
+                with log.phase("masked_forwards", index=i, k=num_mask_samples):
+                    if is_knockout:
+                        out = _sharded_knockout_saliency(engine, mesh, image, seg, plan["ids"],
+                                                         target)
+                    else:
+                        out = _sharded_window_saliency(engine, mesh, image, seg,
+                                                       num_mask_samples, window_fraction,
+                                                       seed + i, target, plan["firsts"])
+                finish_image(i, target, out.num_segments, out.heatmap, out.eval.survived, t0,
+                             image)
+                continue
             # Prediction, argmax (a device scalar, so the masked forwards
             # need no fetch) and masked forwards are all enqueued; the image
             # is collected one behind.
@@ -373,6 +491,7 @@ def saliency_sweep(
             while len(inflight) > 1:
                 collect_one()
         except Exception as e:  # per-image failure isolation
+            _fatal(e)
             res.images_failed += 1
             log.emit({"event": "image_failed", "index": i, "error": repr(e)})
 
@@ -471,6 +590,7 @@ def _batched_flush_sweep(
             preds = _host(preds)  # a device tensor on the deferred-predict path
             results = collect(state)
         except Exception as e:
+            _fatal(e)
             failed = [idxs[j] for j in keep]
             res.images_failed += len(failed)
             log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
@@ -504,6 +624,7 @@ def _batched_flush_sweep(
                 res.per_image.append(row)
                 log.emit({"event": "image_done", **row})
             except Exception as e:
+                _fatal(e)
                 res.images_failed += 1
                 log.emit({"event": "image_failed", "index": idxs[j], "error": repr(e)})
 
@@ -512,6 +633,7 @@ def _batched_flush_sweep(
         try:
             state = dispatch(imgs_dev, disps, keep, idxs, preds, prep)
         except Exception as e:
+            _fatal(e)
             failed = [idxs[j] for j in keep]
             res.images_failed += len(failed)
             log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
@@ -558,6 +680,7 @@ def _batched_flush_sweep(
                     return
             prep = prepare(imgs_dev, disps, keep) if prepare else None
         except Exception as e:
+            _fatal(e)
             # Skipped images are accounted for already; only the kept (or,
             # before the predict, the whole) set counts as failed.
             failed = [b[0] for b in batch] if keep is None else [batch[j][0] for j in keep]
@@ -592,6 +715,7 @@ def _batched_flush_sweep(
             if len(pending) >= image_batch:
                 flush()
         except Exception as e:
+            _fatal(e)
             res.images_failed += 1
             log.emit({"event": "image_failed", "index": i, "error": repr(e)})
     flush()
@@ -661,6 +785,7 @@ def bo_saliency_sweep(
     journal=None,
     fidelity_steps: int = 0,
     normalize=None,
+    mesh=None,
 ) -> SweepResult:
     """Val-set sweep driven by the flagship path, GP-EI BO per image
     (``bayesian_active_learning_imagenet.py:379-498``), batched: every
@@ -679,7 +804,8 @@ def bo_saliency_sweep(
     ``normalize=(mean, std)``: the uint8 wire (see ``_batched_flush_sweep``).
     With ``seg_cfg.method == "slic"`` the displays derive on the device from
     the normalized batch; with Felzenszwalb the display stretches the raw
-    uint8 image.
+    uint8 image. ``mesh``: each flush's image axis shards over its data axis
+    (each rank runs its slice of the loops; ``bo_window_saliency_multi``).
     """
     from network_interpretation_imagenet_tpu_torch.config import BOConfig
     from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import (
@@ -716,7 +842,8 @@ def bo_saliency_sweep(
         collect_fn = bo_window_saliency_multi_async(
             engine, keep_imgs, segs, bo_cfg, window_fraction=window_fraction,
             per_image_seeds=[seed + int(idxs[j]) for j in keep],
-            targets=_kept_targets(preds, keep), proposals_per_iter=proposals_per_iter)
+            targets=_kept_targets(preds, keep), proposals_per_iter=proposals_per_iter,
+            mesh=mesh)
         return collect_fn, ss
 
     def collect(state):
@@ -770,6 +897,7 @@ def attribution_sweep(
     rise_keep_prob: float = 0.5,
     mask_batch: Optional[int] = None,
     scorecam_channels: int = 64,
+    mesh=None,
 ) -> SweepResult:
     """Val-set sweep driven by the attribution family, through the same flush
     driver as :func:`bo_saliency_sweep`; no segmentation (these methods
@@ -796,7 +924,8 @@ def attribution_sweep(
     ladder's display). ``heatmap_wire`` ``"f16"`` halves the heatmap fetch
     (<= 2^-11 relative rounding), ``"u8"`` quarters it by per-image min-max
     quantization (bbox and IOU exact); meaningful keeps f32, xrai's signed
-    maps refuse ``"u8"``.
+    maps refuse ``"u8"``. ``mesh``: each flush's image axis shards over its
+    data axis (every batched entry's ``mesh=``); seeds stay tied to images.
     """
     if heatmap_wire not in ("f32", "f16", "u8"):
         raise ValueError(f"heatmap_wire must be f32|f16|u8, got {heatmap_wire!r}")
@@ -839,13 +968,14 @@ def attribution_sweep(
             from network_interpretation_imagenet_tpu_torch.saliency import learned_mask
 
             return learned_mask.learned_mask_batch_dispatch(
-                engine.bundle.logits, engine.variables, keep_imgs, targets, seeds=seeds, **lm)
+                engine.bundle.logits, engine.variables, keep_imgs, targets, seeds=seeds,
+                mesh=mesh, **lm)
         if method == "xrai":
             from network_interpretation_imagenet_tpu_torch.saliency import xrai
 
             attr = xrai.xrai_attribution_batch(engine.bundle.logits, engine.variables,
                                                keep_imgs, targets, steps=steps,
-                                               step_batch=step_batch)
+                                               step_batch=step_batch, mesh=mesh)
             return (attr.to(torch.float16) if heatmap_wire == "f16" else attr,
                     [disps[j] for j in keep])
         if method in gmod.MASK_BATCHED_METHODS:
@@ -856,12 +986,12 @@ def attribution_sweep(
                 bundle=engine.bundle, seeds=seeds, patch=patch, stride=stride,
                 rise_masks=rise_masks, rise_grid=rise_grid, rise_keep_prob=rise_keep_prob,
                 mask_batch=mask_batch, gradcam_layer=gradcam_layer,
-                scorecam_channels=scorecam_channels))
+                scorecam_channels=scorecam_channels, mesh=mesh))
         return wire(gmod.attribute_batch(
             engine.bundle.logits, engine.variables, keep_imgs, targets, method,
             bundle=engine.bundle, steps=steps, samples=samples, noise_sigma=noise_sigma,
             magnitude=magnitude, gradcam_layer=gradcam_layer, seeds=seeds,
-            step_batch=step_batch, sample_batch=sample_batch))
+            step_batch=step_batch, sample_batch=sample_batch, mesh=mesh))
 
     def collect(state):
         if method == "xrai":

@@ -20,6 +20,7 @@ import torch
 from network_interpretation_imagenet_tpu_torch.saliency.gradient import (
     _grad_mean,
     _image_batch_scaffold,
+    image_sharded,
     as_image,
     variables_device,
 )
@@ -82,16 +83,22 @@ def xrai_attribution(logits_fn: Callable, variables: Any, image, target: int, st
 
 
 def xrai_attribution_batch(logits_fn: Callable, variables: Any, images, targets,
-                           steps: int = 16, step_batch: Optional[int] = None) -> torch.Tensor:
+                           steps: int = 16, step_batch: Optional[int] = None, mesh=None,
+                           data_axis: str = "data") -> torch.Tensor:
     """N images' signed XRAI attributions (default baselines) -> f32[N, H, W],
     one stacked backward (``step_batch`` bounds it at N*2*chunk images).
-    The greedy ranking stays per-image host work."""
+    The greedy ranking stays per-image host work. ``mesh`` shards the image
+    axis (``gradient.image_sharded``)."""
     dev = variables_device(variables)
-    images, targets, _, n = _image_batch_scaffold(images, targets, None, dev)
+    images, targets, seeds, n = _image_batch_scaffold(images, targets, None, dev)
     if n == 0:
         return torch.zeros((0, *images.shape[1:3]), dtype=torch.float32, device=dev)
-    return _signed_ig(logits_fn, variables, images, targets, int(steps),
-                      _default_baselines(images), step_batch)
+
+    def run(imgs, tgts, _):
+        return _signed_ig(logits_fn, variables, imgs, tgts, int(steps),
+                          _default_baselines(imgs), step_batch)
+
+    return image_sharded(mesh, data_axis, run, images, targets, seeds)
 
 
 def greedy_region_ranking(attr: np.ndarray, segment_maps: Sequence[np.ndarray],

@@ -10,6 +10,7 @@ threshold-search and multi-image paths, both GP surrogates, a
 checkpoint round trip, one attribution of each kind (an input
 gradient, an occlusion map, a fidelity AUC, a SLIC segmentation), and the
 val-set sweeps (window with a journal, BO, attribution) and the sweep CLI,
+a sharded window eval on a world of one and the rank-result merge,
 a zoo net's masked evals, a weights artifact written and read back, and
 the MNIST generator from it, one request served over HTTP from a
 serving artifact, and one epoch of ``cli.main --synthetic``, in the spirit of tests/test_weights_artifact.py's torch-blocked run."""
@@ -115,6 +116,17 @@ assert [r.images_explained for r in (swept, bo_swept, attr_swept)] == [2, 2, 2]
 sweep_cli.main(["--synthetic", "--num-images", "1", "--num_mask_samples", "4",
                 "--mask-batch", "4", "--dtype", "float32", "--device", "cpu",
                 "--out", tmp + "/cli"])
+import torch.distributed as dist
+from network_interpretation_imagenet_tpu_torch import parallel
+from network_interpretation_imagenet_tpu_torch.parallel import multihost
+mesh = parallel.make_mesh(device="cpu")   # a world of one on gloo
+surv, _, count = parallel.sharded_window_eval(mesh, engine.folded_logits, engine.variables,
+                                              image, segments, out.firsts, out.width, 0,
+                                              compute_dtype=torch.float32)
+assert count == int(surv.sum()) and len(surv) == len(out.firsts)
+multihost.write_rank_result(tmp + "/ranks", swept, rank=0)
+assert multihost.merge_rank_results(tmp + "/ranks", 1).images_explained == 2
+dist.destroy_process_group()
 from network_interpretation_imagenet_tpu_torch.models import create_model
 from network_interpretation_imagenet_tpu_torch.utils import convert
 from network_interpretation_imagenet_tpu_torch.cli import generate_gp_training_data_mnist as gen
@@ -169,7 +181,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import jax|from jax|.*network_interpretation_imagenet_tpu\.)",
                          re.MULTILINE)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_parallel_worker.py")]
     for root, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
@@ -189,6 +202,7 @@ def test_no_jax_import_in_port_sources():
                  "data.loaders", "utils.convert", "cli.convert_checkpoint",
                  "cli.generate_gp_training_data_mnist", "cli.generate_gp_training_data_cifar",
                  "serving", "serving_http", "serving_client", "cli.export_serving", "cli.serve",
-                 "utils.nn", "parallel", "parallel.train_step", "train", "train.harness",
+                 "utils.nn", "parallel", "parallel.train_step", "parallel.mesh",
+                 "parallel.multihost", "parallel.sharded_engine", "train", "train.harness",
                  "data.imagenet_train", "cli.main"):
         assert f"network_interpretation_imagenet_tpu_torch.{name}" in modules, name

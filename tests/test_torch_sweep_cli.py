@@ -149,7 +149,10 @@ def test_flag_conflicts_fail_with_jax_messages(capsys, flags):
 
 
 def test_multihost_flags_are_not_ported(capsys):
+    """The multi-process flags are ported now (tests/test_torch_parallel.py
+    drives them): they parse, and --multihost with no coordinator anywhere
+    exits 2 with the JAX package's error, naming torch.distributed."""
     for flag in ("--multihost", "--data-parallel"):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--synthetic", flag])
-        assert "unrecognized arguments" in capsys.readouterr().err
+        assert getattr(cli.parse_args(["--synthetic", flag]), flag[2:].replace("-", "_"))
+    assert cli.main(["--synthetic", "--multihost", "--device", "cpu"]) == 2
+    assert "--multihost could not initialize torch.distributed" in capsys.readouterr().err
