@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ptrain-witness   # only the f32 parting witness (see 27)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -223,6 +224,37 @@ kernel against its plain PyTorch version on the card:
      gradient (SERVE_BF16_ATTR_TOL, SERVE_BF16_ATTR_RHO) and RISE
      (ATTR_B2_TOL) against the unsharded calls; merged evals/s and each
      rank's p50. Every rank's launches sum under the path "parallel".
+ 27. [parallel train] (run after [parallel]): multi-GPU training, its ranks
+     ``--parallel-worker --task train`` processes. A world of 1 on NCCL:
+     from one state, step 1 of ResNet-50 224 f32 (TF32 off) at
+     B=PTRAIN_BATCH meshless, on the mesh (every collective runs: the
+     BatchNorm all-reduces and the flat gradient all-reduce) and meshless
+     in f64: the mesh step's loss within TRAIN_LOSS_TOL of the f64 step's,
+     its update no further from the f64 update than TRAIN_UPDATE_TOL x the
+     meshless step's (relative L2, all tensors), its running statistics
+     within TRAIN_STATS_TOL; then PTRAIN_STEPS steps each f32 way for ms
+     per step. Two
+     gloo ranks sharing the card: cli.main PTRAIN_ARGV --multihost against
+     the same argv in this process first, both under deterministic
+     algorithms: per-epoch losses within
+     PTRAIN_LOSS_RTOL, val_err1 within one image, rank 0 alone writing the
+     scores, result and checkpoints, each rank's ms per step and the merged
+     images/s; the two-rank model_best in a bf16 engine on both ranks,
+     1,024 windows through sharded_window_eval against the unsharded engine
+     (PARALLEL_AGREE, PARALLEL_PROB_TOL; B1 bit-exact on the rank's masks,
+     B2 block by block within B2_TOL at B = 512 and 1); a run cut mid-epoch
+     and resumed on both ranks under torch.use_deterministic_algorithms
+     (global B=PTRAIN_RESUME_BATCH, 4 steps, a save every 2) equal to the
+     uninterrupted one bit for bit; and one step on the data axis (mesh
+     (2, 1), each rank half the rows) and one on the model axis (mesh
+     (1, 2)), at B=PTRAIN_TP_BATCH, each held to the f64 step as the
+     world-1 step is, with each rank's parameter and slot bytes. Every
+     rank's handoff launches sum under the path "parallel train".
+     ``--ptrain-witness`` runs PTRAIN_ARGV in this process at lr 0.01 and
+     0.001 from the seeded init, from it written as a weights artifact,
+     and from two copies with every weight moved one ulp (random signs,
+     through --pretrained), and prints how far the histories part: the
+     spread of two f32 runs that PTRAIN_LOSS_RTOL must cover.
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record, the last line {"ok": true, "device": {...}}. Without a
@@ -2301,6 +2333,67 @@ def step_meter(stdout):
             if line.startswith("Epoch: [") and "\tTime " in line]
 
 
+class Cut(Exception):
+    """The interruption :func:`cut_loader` raises."""
+
+
+def cut_loader(x, y, batch, after):
+    """A shuffled ``ArrayLoader`` whose epochs raise :class:`Cut` at batch
+    ``after`` (a run cut mid-epoch)."""
+    from network_interpretation_imagenet_tpu_torch.data.loaders import ArrayLoader
+
+    class CutLoader(ArrayLoader):
+        def __iter__(self):
+            for i, item in enumerate(super().__iter__()):
+                if i == after:
+                    raise Cut
+                yield item
+
+    return CutLoader(x, y, batch, shuffle=True)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms (warn-only, its warnings muted)
+    within the block: a run repeats itself bit for bit."""
+    import os
+    import warnings
+
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def step_errors(after, ref, base, loss=None, ref_loss=None):
+    """How far a run's state ``after`` lies from the f64 run's ``ref``, both
+    from ``base`` (CPU f64 tensors by name): the update, all parameters as
+    one vector, in relative L2 (``update``, with the ``worst`` tensor), the
+    running statistics' max error x each tensor's scale (``stats``) and,
+    given, the loss's relative error."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for k, t in ref.items():
+        if k.endswith(("running_mean", "running_var")):
+            continue
+        want = t - base[k]
+        d = float((after[k] - base[k] - want).norm()) ** 2
+        num, den = num + d, den + float(want.norm()) ** 2
+        worst = max(worst, ((d ** 0.5) / max(float(want.norm()), 1e-30), k))
+    stats = max(float((after[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+                for k in ref if k.endswith(("running_mean", "running_var")))
+    out = {"update": (num / den) ** 0.5, "worst": worst, "stats": stats}
+    if loss is not None:
+        out["loss"] = abs(loss - ref_loss) / abs(ref_loss)
+    return out
+
+
 def train_phase(normalized, segments, smi, by_path):
     """[train]: training on the card, and its checkpoint explained (see the
     module docstring, 25)."""
@@ -2349,23 +2442,9 @@ def train_phase(normalized, segments, smi, by_path):
                        if not k.endswith("num_batches_tracked")}
         metrics[name] = {k: float(v) for k, v in m.items()}
         del state, init, step
-    ref, base = after["f64"], {k: v.double() for k, v in sd.items()}
-    errs = {}
-    for name in ("card", "cpu"):
-        num = den = 0.0
-        worst = (0.0, "")
-        for k, t in ref.items():
-            if k.endswith(("running_mean", "running_var")):
-                continue
-            want = t - base[k]
-            d = float((after[name][k] - base[k] - want).norm()) ** 2
-            num, den = num + d, den + float(want.norm()) ** 2
-            worst = max(worst, ((d ** 0.5) / max(float(want.norm()), 1e-30), k))
-        stats = max(float((after[name][k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(
-            1e-30)) for k in ref if k.endswith(("running_mean", "running_var")))
-        errs[name] = {"loss": abs(metrics[name]["loss"] - metrics["f64"]["loss"])
-                      / abs(metrics["f64"]["loss"]), "update": (num / den) ** 0.5,
-                      "worst": worst, "stats": stats}
+    base = {k: v.double() for k, v in sd.items()}
+    errs = {name: step_errors(after[name], after["f64"], base, metrics[name]["loss"],
+                              metrics["f64"]["loss"]) for name in ("card", "cpu")}
     e_card, e_cpu = errs["card"], errs["cpu"]
     log(f"[train] ResNet-50 224 B={TRAIN_CHECK_BATCH}, one stock SGD step from the same "
         f"parameters, f32 on the card and on the CPU, each against f64 on the card: loss "
@@ -2389,16 +2468,6 @@ def train_phase(normalized, segments, smi, by_path):
     xr, yr = synthetic_classification_batch(SEED + 1, 64, 224, 3, 8)
     val = ArrayLoader(xr[:16], yr[:16], 16)
 
-    class Cut(Exception):
-        pass
-
-    class CutLoader(ArrayLoader):
-        def __iter__(self):
-            for i, batch in enumerate(super().__iter__()):
-                if i == 3:
-                    raise Cut
-                yield batch
-
     with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2414,7 +2483,7 @@ def train_phase(normalized, segments, smi, by_path):
                 t.fit(ArrayLoader(xr, yr, 16, shuffle=True), val)
                 runs[name] = t.variables()
             try:
-                trainer("cut").fit(CutLoader(xr, yr, 16, shuffle=True), val)
+                trainer("cut").fit(cut_loader(xr, yr, 16, 3), val)
                 raise AssertionError("[train] the cut run was not cut")
             except Cut:
                 pass
@@ -3409,7 +3478,11 @@ def parallel_worker(argv) -> int:
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--dir", default=None)
+    ap.add_argument("--task", default="explain", choices=["explain", "train"])
     args = ap.parse_args(argv)
+    if args.task == "train":
+        return (ptrain_world1(args.port) if args.world == 1
+                else ptrain_world2(args.rank, args.port, args.dir))
     if args.world == 1:
         return parallel_world1(args.port)
     return parallel_world2(args.rank, args.port, args.dir)
@@ -3531,6 +3604,478 @@ def parallel_phase(smi, by_path):
                  f"--data-parallel {bo['evals_per_sec']:.1f} evals/s")
     log(f"[parallel] {smi}: " + "; ".join(lines)
         + f"; launches {json.dumps(launches)}; {time.perf_counter() - t_phase:.1f} s")
+
+
+PTRAIN_STEPS = 8             # [parallel train], world 1: timed steps from one state, each way
+PTRAIN_BATCH = 256           # its batch: [train]'s configuration (ResNet-50 224 f32, TF32 off)
+PTRAIN_LR = 0.01             # SGD: at the stock 0.1 the timed steps' loss blows up
+# The two-rank CLI run and its single-process twin, each under deterministic algorithms (so
+# the gap between them is the same in every run): 8 steps an epoch at global B=128, at lr
+# 0.001 (at 0.01 epoch 1's train loss read 1.338 on two ranks and 2.134 in one process;
+# --ptrain-witness measures how far two f32 runs part at each rate: PERF.md section 6).
+PTRAIN_ARGV = ["-a", "resnet50", "--synthetic", "--limit-images", "1024", "-b", "128",
+               "--epochs", "2", "--lr", "0.001", "-p", "1"]
+PTRAIN_VAL = 256             # its val images: the last max(1024 // 4, 128)
+PTRAIN_LOSS_RTOL = 2e-2      # per-epoch losses, two ranks vs one process (16 f32 steps apart)
+PTRAIN_TP_BATCH = 32         # the data axis's and the model axis's one step
+PTRAIN_RESUME_BATCH = 16     # the two-rank resume check: 8 rows a rank, 4 steps, a save every 2
+
+
+def _run_steps(bundle, mesh, sd, x, y, dtype, steps, lr=PTRAIN_LR):
+    """``steps`` SGD steps of ``bundle`` from ``sd`` on the global batch
+    ``x, y`` (on ``mesh`` each rank steps its rows; None: the meshless
+    step): (each step's loss, each step's ms, the whole parameters and
+    statistics after step 1, as CPU f64, this rank's parameter and slot
+    bytes)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import TrainConfig
+    from network_interpretation_imagenet_tpu_torch.parallel import make_sharded_train_step
+    from network_interpretation_imagenet_tpu_torch.parallel.mesh import shard_batch
+    from network_interpretation_imagenet_tpu_torch.parallel.train_step import (
+        gather_full,
+        param_shardings,
+    )
+    from network_interpretation_imagenet_tpu_torch.train import make_optimizer
+
+    cfg = TrainConfig(lr=lr, momentum=0.9, weight_decay=1e-4)
+    init, step = make_sharded_train_step(bundle, mesh, make_optimizer(cfg, 1000), device="cuda")
+    state = init(SEED, {k: v.to(dtype) if v.is_floating_point() else v for k, v in sd.items()})
+    xd = torch.as_tensor(x).to("cuda", dtype)
+    yd = torch.as_tensor(y).to("cuda")
+    if mesh is not None:
+        xd, yd = shard_batch(mesh, xd), shard_batch(mesh, yd)
+    losses, ms, after = [], [], None
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, xd, yd)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if after is None:   # step 1, the one held to f64 (outside the timing)
+            params = {n: p.detach() for n, p in state.params.items()}
+            if mesh is not None:
+                params = gather_full(mesh, params, param_shardings(
+                    dict(bundle.module.named_parameters()), mesh))
+            after = {k: t.double().cpu() for k, t in {**params, **state.buffers}.items()
+                     if not k.endswith("num_batches_tracked")}
+    local = {"param_bytes": sum(p.numel() * p.element_size() for p in state.params.values()),
+             "slot_bytes": sum(t.numel() * t.element_size()
+                               for t in state.opt_state["trace"].values())}
+    return losses, ms, after, local
+
+
+def ptrain_world1(port):
+    """[parallel train], a world of 1 on NCCL: from one state, ResNet-50 224
+    at B=PTRAIN_BATCH, PTRAIN_STEPS f32 steps meshless and on the mesh, and
+    one meshless f64 step (the referee of both f32 runs' step 1). Prints
+    one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from network_interpretation_imagenet_tpu_torch.data.synthetic import (
+        synthetic_classification_batch,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.parallel import make_mesh, multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert multihost.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    mesh = make_mesh()
+    bundle = create_model("resnet50", "imagenet", num_classes=8)
+    sd = bundle.init(SEED)
+    x, y = synthetic_classification_batch(SEED, PTRAIN_BATCH, 224, 3, 8)
+    out = {"backend": dist.get_backend(), "mesh": list(mesh.shape), "runs": {}}
+    after = {}
+    for name, m, dtype, steps in (("plain", None, torch.float32, PTRAIN_STEPS),
+                                  ("mesh", mesh, torch.float32, PTRAIN_STEPS),
+                                  ("f64", None, torch.float64, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, after[name], _ = _run_steps(bundle, m, sd, x, y, dtype, steps)
+        out["runs"][name] = {"losses": losses, "ms": ms,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        torch.cuda.empty_cache()
+    base = {k: v.double() for k, v in sd.items()}
+    f64_loss = out["runs"]["f64"]["losses"][0]
+    out["errors"] = {name: step_errors(after[name], after["f64"], base,
+                                       out["runs"][name]["losses"][0], f64_loss)
+                     for name in ("plain", "mesh")}
+    out["mesh_vs_plain"] = max(float((after["mesh"][k] - after["plain"][k]).abs().max())
+                               for k in after["plain"])
+    out["grad_bytes"] = sum(p.numel() * 4 for p in bundle.module.parameters())
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def _recording_writes(fn):
+    """(``fn()``, the base names of the files it opened for writing)."""
+    import builtins
+    import os
+
+    written, real_open = set(), builtins.open
+
+    def recording_open(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            written.add(os.path.basename(str(file)))
+        return real_open(file, mode, *a, **k)
+
+    builtins.open = recording_open
+    try:
+        return fn(), sorted(written)
+    finally:
+        builtins.open = real_open
+
+
+def ptrain_world2(rank, port, workdir):
+    """[parallel train], one rank of two on gloo sharing the card:
+    cli.main --multihost (the argv of ``workdir/train_argv.json``), its
+    model_best explained through the sharded engine, a mid-epoch resume
+    under deterministic algorithms, and one step on the data axis and one
+    on the model axis. Prints one JSON line."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from network_interpretation_imagenet_tpu_torch.cli import common
+    from network_interpretation_imagenet_tpu_torch.cli import main as train_cli
+    from network_interpretation_imagenet_tpu_torch.config import TrainConfig
+    from network_interpretation_imagenet_tpu_torch.data.loaders import ArrayLoader
+    from network_interpretation_imagenet_tpu_torch.data.synthetic import (
+        synthetic_classification_batch,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.parallel import (
+        make_mesh,
+        multihost,
+        sharded_window_eval,
+    )
+    from network_interpretation_imagenet_tpu_torch.train import Trainer
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    coordinator = f"127.0.0.1:{port}"
+    assert multihost.initialize_distributed(coordinator, 2, rank, backend="gloo")
+    out = {"rank": rank, "backend": dist.get_backend()}
+
+    # 1. the user's command: cli.main --multihost, rank 0 alone writing, under
+    # deterministic algorithms as its single-process twin
+    with open(os.path.join(workdir, "train_argv.json")) as f:
+        argv = json.load(f)
+    join = ["--multihost", "--coordinator", coordinator, "--num-processes", "2",
+            "--process-id", str(rank), "--dist-backend", "gloo",
+            "--save", os.path.join(workdir, "multi")]
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), deterministic():
+        rc, written = _recording_writes(lambda: train_cli.main(argv + join))
+    out["cli"] = {"rc": rc, "written": written, "seconds": time.perf_counter() - t0,
+                  "steps_s": step_meter(stdout.getvalue()),
+                  "losses": meter_losses(stdout.getvalue())}
+    if rc != 0:
+        raise AssertionError(f"rank {rank}: cli.main --multihost exited {rc}")
+
+    # 2. the handoff: the two-rank model_best through --ckpt into a bf16 engine,
+    # 1,024 windows sharded over the two ranks
+    mesh = make_mesh()
+    args = common.build_parser("handoff").parse_args(
+        ["--arch", "resnet50", "--ckpt", os.path.join(workdir, "multi", "imagenet-resnet50",
+                                                       "model_best"),
+         "--mask-batch", str(HANDOFF_MASKS)])
+    engine = common.build_engine(args, num_classes=8)
+    imgs, segs = _parallel_images([SEED])
+    img, seg = imgs[0], segs[0]
+    s = int(seg.max()) + 1
+    width = int(0.4 * s)
+    firsts = masking.sample_window_starts_host(SEED, HANDOFF_MASKS, s, width)
+    _reset_launches()
+    target, _ = engine.predict_one(img)
+    got = sharded_window_eval(mesh, engine.folded_logits, engine.variables, img, seg, firsts,
+                              width, target)
+    out["handoff_launches"] = _launches()
+    ref = engine.eval_window_masks(img, seg, firsts, width, target)
+    agree, err = _agree(got, (ref.survived, ref.prob_target))
+    dev = torch.device("cuda")
+    image_t = torch.from_numpy(img).to(dev)
+    seg_t = torch.from_numpy(np.asarray(seg, np.int32)).to(dev)
+    mine = torch.from_numpy(firsts[rank * HANDOFF_MASKS // 2:(rank + 1) * HANDOFF_MASKS // 2]
+                            ).to(dev)
+    masked = masked_batch(image_t, seg_t, mine, width, torch.bfloat16)
+    b1_exact = bool(torch.equal(masked, masked_batch_plain(image_t, seg_t, mine, width,
+                                                           torch.bfloat16)))
+    worst = 0.0
+    for batch_x in (masked, image_t[None].to(torch.bfloat16)):
+        for x_in, chain in chain_inputs(engine.model, batch_x):
+            worst = max(worst, check_chain(x_in.contiguous(), chain, B2_TOL)[0])
+    out["handoff"] = {"target": int(target), "agree": agree, "prob_err": err,
+                      "count": int(got[2]), "b1_exact": b1_exact, "b2_block_err": worst}
+    if not (agree >= PARALLEL_AGREE and err <= PARALLEL_PROB_TOL and b1_exact):
+        raise AssertionError(f"rank {rank} handoff: {out['handoff']}")
+    del engine, masked
+    torch.cuda.empty_cache()
+
+    # 3. a mid-epoch resume on both ranks under deterministic algorithms
+    xr, yr = synthetic_classification_batch(SEED + 1, 4 * PTRAIN_RESUME_BATCH, 224, 3, 8)
+    val = ArrayLoader(xr[:PTRAIN_RESUME_BATCH], yr[:PTRAIN_RESUME_BATCH], PTRAIN_RESUME_BATCH)
+
+    def trainer(name):
+        return Trainer(create_model("resnet50", "imagenet", num_classes=8),
+                       TrainConfig(lr=0.1, epochs=1), 4, mesh=mesh,
+                       save_dir=os.path.join(workdir, f"resume_{name}"), save_every_steps=2)
+
+    with deterministic():
+        whole = trainer("whole")
+        whole.fit(ArrayLoader(xr, yr, PTRAIN_RESUME_BATCH, shuffle=True), val)
+        try:
+            trainer("cut").fit(cut_loader(xr, yr, PTRAIN_RESUME_BATCH, 3), val)
+            raise AssertionError("the cut run was not cut")
+        except Cut:
+            pass
+        resumed = trainer("cut")
+        if not (resumed.resume() and resumed.resume_skip_steps == 2):
+            raise AssertionError(f"rank {rank}: no mid-epoch checkpoint to resume")
+        resumed.fit(ArrayLoader(xr, yr, PTRAIN_RESUME_BATCH, shuffle=True), val)
+        a, b = whole.variables(), resumed.variables()
+    out["resume_err"] = max((a[k].float() - b[k].float()).abs().max().item()
+                            for k in a if not k.endswith("num_batches_tracked"))
+    del whole, resumed, a, b
+    torch.cuda.empty_cache()
+
+    # 4. the data axis and the model axis through the API: one step on mesh
+    # (2, 1), each rank its half of the rows, and one on mesh (1, 2), against
+    # the meshless step, each held to the meshless f64 step
+    tp = make_mesh(model_parallel=2)
+    bundle = create_model("resnet50", "imagenet", num_classes=8)
+    sd = bundle.init(SEED)
+    x, y = synthetic_classification_batch(SEED + 2, PTRAIN_TP_BATCH, 224, 3, 8)
+    runs = {}
+    for name, m, dtype in (("dp", mesh, torch.float32), ("tp", tp, torch.float32),
+                           ("plain", None, torch.float32), ("f64", None, torch.float64)):
+        runs[name] = _run_steps(bundle, m, sd, x, y, dtype, 1, lr=0.1)
+    base = {k: v.double() for k, v in sd.items()}
+    out["tp"] = {"mesh": list(tp.shape), "dp_mesh": list(mesh.shape), **{
+        name: {**step_errors(runs[name][2], runs["f64"][2], base, runs[name][0][0],
+                             runs["f64"][0][0]), **runs[name][3]}
+        for name in ("dp", "tp", "plain")}}
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def meter_losses(stdout):
+    """The per-step losses of Trainer.train_epoch's meter lines (-p 1)."""
+    return [float(line.split("\tLoss ")[1].split(" ")[0]) for line in stdout.splitlines()
+            if line.startswith("Epoch: [") and "\tLoss " in line]
+
+
+def parallel_train_phase(smi, by_path):
+    """[parallel train]: see the module docstring, item 27. Each part's line
+    is printed before its checks."""
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import main as train_cli
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()   # the ranks' processes need the card's memory
+    w1 = _parallel_spawn([["--task", "train", "--world", "1", "--port", str(_free_port())]],
+                         900)[0]
+    runs, errs = w1["runs"], w1["errors"]
+    ms = {k: float(np.median(runs[k]["ms"][1:])) for k in ("plain", "mesh")}
+    log(f"[parallel train] {smi}: world 1 ({w1['backend']}, mesh {w1['mesh']}), ResNet-50 224 "
+        f"f32 B={PTRAIN_BATCH}, {PTRAIN_STEPS} SGD steps at lr {PTRAIN_LR} from one state on one "
+        f"device-resident batch, step 1 against one f64 step: loss rel err meshless "
+        f"{errs['plain']['loss']:.3g}, mesh {errs['mesh']['loss']:.3g} (tol {TRAIN_LOSS_TOL}); "
+        f"update rel L2 err meshless {errs['plain']['update']:.3g}, mesh "
+        f"{errs['mesh']['update']:.3g} (tol: the mesh within {TRAIN_UPDATE_TOL} x the "
+        f"meshless); worst tensor meshless {errs['plain']['worst'][0]:.3g} "
+        f"({errs['plain']['worst'][1]}), mesh {errs['mesh']['worst'][0]:.3g} "
+        f"({errs['mesh']['worst'][1]}); running statistics max err x scale meshless "
+        f"{errs['plain']['stats']:.3g}, mesh {errs['mesh']['stats']:.3g} (tol "
+        f"{TRAIN_STATS_TOL}); max |mesh - meshless| after step 1 {w1['mesh_vs_plain']:.3g}; "
+        f"ms per step (warm median) meshless {ms['plain']:.1f}, mesh "
+        f"{ms['mesh']:.1f} ({ms['mesh'] / ms['plain']:.3f}x; the mesh adds one flat all-reduce "
+        f"of {w1['grad_bytes']} bytes of gradients, 2 x 53 BatchNorm all-reduces and BatchNorm "
+        f"as tensor operations), per step meshless "
+        f"{[round(v, 1) for v in runs['plain']['ms']]}, mesh "
+        f"{[round(v, 1) for v in runs['mesh']['ms']]}; peak GiB meshless "
+        f"{runs['plain']['peak_gib']:.2f}, mesh {runs['mesh']['peak_gib']:.2f}, f64 "
+        f"{runs['f64']['peak_gib']:.2f} (one step); losses meshless "
+        f"{[round(v, 6) for v in runs['plain']['losses']]}, mesh "
+        f"{[round(v, 6) for v in runs['mesh']['losses']]}, f64 step 1 "
+        f"{runs['f64']['losses'][0]:.6f} in {runs['f64']['ms'][0]:.1f} ms")
+    if not (errs["mesh"]["loss"] <= TRAIN_LOSS_TOL and errs["plain"]["loss"] <= TRAIN_LOSS_TOL
+            and errs["mesh"]["update"] <= TRAIN_UPDATE_TOL * errs["plain"]["update"]
+            and errs["mesh"]["stats"] <= TRAIN_STATS_TOL):
+        raise AssertionError(f"[parallel train] the world-1 mesh step strays: {errs}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), deterministic():
+            rc = counted(by_path, "parallel_train_cli",
+                         lambda: train_cli.main(PTRAIN_ARGV + ["--save", f"{tmp}/single"]), 0, 0)
+        single_s = time.perf_counter() - t0
+        single_steps, single_losses = step_meter(stdout.getvalue()), meter_losses(
+            stdout.getvalue())
+        if rc != 0:
+            raise AssertionError(f"[parallel train] the single-process run exited {rc}")
+        with open(f"{tmp}/train_argv.json", "w") as f:
+            json.dump(PTRAIN_ARGV, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        port = _free_port()
+        ranks = _parallel_spawn([["--task", "train", "--world", "2", "--rank", str(r),
+                                  "--port", str(port), "--dir", tmp] for r in range(2)], 900)
+        world2_s = time.perf_counter() - t0
+        results = {}
+        for name in ("single", "multi"):
+            with open(f"{tmp}/{name}/imagenet_train_result.json") as f:
+                results[name] = json.load(f)
+    rows = list(zip(results["multi"]["history"], results["single"]["history"]))
+    loss_err = max(abs(m[k] - s[k]) / abs(s[k]) for m, s in rows
+                   for k in ("train_loss", "val_loss"))
+    # One val image moves the error rate by 100 / PTRAIN_VAL: a prediction on a
+    # decision boundary may flip between two f32 trajectories 16 steps apart.
+    err1_gap = max(abs(m["val_err1"] - s["val_err1"]) for m, s in rows)
+    rank0, rank1 = ranks[0]["cli"], ranks[1]["cli"]
+    gb = int(PTRAIN_ARGV[PTRAIN_ARGV.index("-b") + 1])
+    single_ms = float(np.median(single_steps[1:])) * 1e3
+    rank_ms = [float(np.median(rk["cli"]["steps_s"][1:])) * 1e3 for rk in ranks]
+
+    def hist(name):
+        return json.dumps([{k: r[k] for k in ("train_loss", "val_loss", "val_err1")}
+                           for r in results[name]["history"]])
+
+    log(f"[parallel train] cli.main {' '.join(PTRAIN_ARGV)}: single process {single_s:.1f} s, "
+        f"warm median {single_ms:.1f} ms a step, {gb / single_ms * 1e3:.1f} images/s; two gloo "
+        f"ranks on one card ({world2_s:.1f} s for the ranks' whole work) --multihost "
+        f"{rank0['seconds']:.1f} s: per-rank warm median "
+        + " / ".join(f"{v:.1f}" for v in rank_ms)
+        + f" ms a step, merged {gb / max(rank_ms) * 1e3:.1f} images/s "
+        f"({single_ms / max(rank_ms):.3f}x the single process); worst per-epoch loss rel err "
+        f"{loss_err:.3g} (tol {PTRAIN_LOSS_RTOL}), val_err1 gap {err1_gap:.3f} (tol one image "
+        f"of {PTRAIN_VAL}); two ranks {hist('multi')}, one process {hist('single')}; per-step "
+        f"losses one process {single_losses}, rank 0 {rank0['losses']}; rank 0 wrote "
+        f"{rank0['written']}, rank 1 {rank1['written'] or 'nothing'}")
+    if not (len(rows) == 2 and loss_err <= PTRAIN_LOSS_RTOL
+            and err1_gap <= 100.0 / PTRAIN_VAL + 1e-9
+            and {"scores.tsv", "imagenet_train_result.json"} <= set(rank0["written"])
+            and not rank1["written"]):
+        raise AssertionError("[parallel train] two ranks vs one process: see the line above")
+    for rk in ranks:
+        tp, h = rk["tp"], rk["handoff"]
+        log(f"[parallel train] rank {rk['rank']} ({rk['backend']}): resumed mid-epoch under "
+            f"deterministic algorithms, max |uninterrupted - resumed| {rk['resume_err']:.3g}; "
+            f"one ResNet-50 step at B={PTRAIN_TP_BATCH} on the data axis {tp['dp_mesh']} and on "
+            f"the model axis {tp['mesh']}: model-axis parameter "
+            f"bytes {tp['tp']['param_bytes']} of {tp['plain']['param_bytes']} "
+            f"({tp['tp']['param_bytes'] / tp['plain']['param_bytes']:.3f}), slot bytes "
+            f"{tp['tp']['slot_bytes']} of {tp['plain']['slot_bytes']}; against f64 (data axis / "
+            f"model axis / meshless): loss {tp['dp']['loss']:.3g} / {tp['tp']['loss']:.3g} / "
+            f"{tp['plain']['loss']:.3g}, update {tp['dp']['update']:.3g} / "
+            f"{tp['tp']['update']:.3g} / {tp['plain']['update']:.3g}, statistics "
+            f"{tp['dp']['stats']:.3g} / {tp['tp']['stats']:.3g} / {tp['plain']['stats']:.3g} "
+            f"(tol: loss {TRAIN_LOSS_TOL}, update {TRAIN_UPDATE_TOL} x the meshless, statistics "
+            f"{TRAIN_STATS_TOL}); handoff (model_best -> bf16 "
+            f"engine, {HANDOFF_MASKS} windows sharded) target {h['target']}, survive agreement "
+            f"{h['agree']} with the unsharded engine, prob_target err {h['prob_err']:.3g}, B1 "
+            f"bit-exact {h['b1_exact']}, B2 worst block err {h['b2_block_err']:.4g} (tol "
+            f"{B2_TOL} x max|plain|, at B = {HANDOFF_MASKS // 2} and 1); launches "
+            f"{json.dumps(rk['handoff_launches'])}")
+        if rk["resume_err"] != 0.0:
+            raise AssertionError(f"[parallel train] rank {rk['rank']}: the resumed two-rank run "
+                                 f"differs by {rk['resume_err']}")
+        for axis in ("dp", "tp"):
+            if not (tp[axis]["loss"] <= TRAIN_LOSS_TOL and tp[axis]["stats"] <= TRAIN_STATS_TOL
+                    and tp[axis]["update"] <= TRAIN_UPDATE_TOL * tp["plain"]["update"]):
+                raise AssertionError(f"[parallel train] rank {rk['rank']}: the {axis} mesh's "
+                                     f"step strays: {tp}")
+    launches = {k: sum(rk["handoff_launches"][k] for rk in ranks)
+                for k in ("masked_batch", "bottleneck_chain")}
+    if not (launches["masked_batch"] > 0 and launches["bottleneck_chain"] > 0):
+        raise AssertionError(f"[parallel train]: B1 or B2 never launched: {launches}")
+    by_path["parallel train"] = launches
+    log(f"[parallel train] launches {json.dumps(launches)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def ptrain_witness() -> int:
+    """``--ptrain-witness``: PTRAIN_ARGV in this process at lr 0.01 and
+    0.001, from cli.main's seeded init ("seeded"), from the same weights
+    through a weights artifact and --pretrained ("artifact"), and from two
+    copies of them with every parameter moved one ulp, each with its own
+    random signs ("ulp a", "ulp b"). Prints each run's history and its
+    per-epoch losses' relative gaps from the artifact run: how far two f32
+    runs part when only their rounding differs."""
+    import os
+    import tempfile
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli import main as train_cli
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.utils import convert
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    bundle = create_model("resnet50", "imagenet", num_classes=8)   # --synthetic's 8 classes
+    sd = bundle.init(0)   # cli.main's init at its default --seed 0
+    params = dict(bundle.module.named_parameters())
+    gen = torch.Generator().manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        inits = {"seeded": None}
+        for name in ("artifact", "ulp a", "ulp b"):
+            moved = dict(sd)
+            if name != "artifact":
+                for k in params:
+                    toward = torch.where(torch.rand(sd[k].shape, generator=gen) < 0.5,
+                                         -float("inf"), float("inf"))
+                    moved[k] = torch.nextafter(sd[k], toward)
+            inits[name] = os.path.join(tmp, name.replace(" ", "_"))
+            convert.save_weights_artifact(convert.jax_variables(moved, bundle.module),
+                                          inits[name], {"arch": "resnet50"})
+        for lr in ("0.01", "0.001"):
+            argv = list(PTRAIN_ARGV)
+            argv[argv.index("--lr") + 1] = lr
+            hist = {}
+            for name, path in inits.items():
+                save = os.path.join(tmp, f"lr{lr}_{name.replace(' ', '_')}")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = train_cli.main(argv + ["--save", save]
+                                        + (["--pretrained", path] if path else []))
+                if rc != 0:
+                    raise AssertionError(f"[ptrain witness] {name} at lr {lr} exited {rc}")
+                with open(os.path.join(save, "imagenet_train_result.json")) as f:
+                    hist[name] = [{k: r[k] for k in ("train_loss", "val_loss", "val_err1")}
+                                  for r in json.load(f)["history"]]
+                torch.cuda.empty_cache()
+            gaps = {name: [{k: round((r[k] - b[k]) / abs(b[k]), 6)
+                            for k in ("train_loss", "val_loss")}
+                           for r, b in zip(h, hist["artifact"])]
+                    for name, h in hist.items() if name != "artifact"}
+            log(f"[ptrain witness] {smi}: cli.main {' '.join(argv)}, one process each: "
+                f"histories {json.dumps(hist)}; per-epoch (run - artifact) / |artifact| "
+                f"{json.dumps(gaps)}")
+    log(f"[ptrain witness] {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    return 0
 
 
 def main() -> int:
@@ -3846,6 +4391,7 @@ def main() -> int:
     serve_phase(engine, normalized, seg_np, target, smi, paths)
     train_phase(normalized, seg_np, smi, paths)
     parallel_phase(smi, paths)
+    parallel_train_phase(smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
@@ -3876,4 +4422,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.exit(parallel_worker(sys.argv[2:]))
+    if sys.argv[1:] == ["--ptrain-witness"]:
+        sys.exit(ptrain_witness())
     sys.exit(main())

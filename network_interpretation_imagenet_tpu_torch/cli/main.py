@@ -1,4 +1,5 @@
-"""ImageNet training on one GPU (port of ``cli/main.py`` of the JAX package):
+"""ImageNet training on one GPU or across processes (port of ``cli/main.py``
+of the JAX package):
 the ``main.py`` the reference README advertises (``python main.py -a
 resnet18 [imagenet-folder with train and val folders]``) but does not ship.
 
@@ -17,10 +18,23 @@ worker count)::
 
 ``--device {cuda,cpu}`` takes the place of ``--platform`` (the card unless
 cpu is asked for); the XLA-only flags (compilation cache, ``--debug-nans``,
-``--local-devices``) are not here. Multi-process and tensor-parallel
-training (``--multihost``, ``--coordinator``, ``--num-processes``,
-``--process-id``, ``--model-parallel`` above 1) wait for ROADMAP.md section
-A, item 7: they exit with code 2.
+``--local-devices``) are not here.
+
+``--multihost`` trains data-parallel across processes, one per device, on
+``torch.distributed`` (``--coordinator host:port --num-processes P
+--process-id R``, or torchrun's environment): ``--batch-size`` is the
+global batch, every rank builds the same shuffled loader and decodes only
+its rows of each full global batch (a partial one is dropped), validation
+strides the images across ranks and sums the counts, and rank 0 alone
+writes the checkpoints, ``scores.tsv`` and the result. ``--dist-backend``
+overrides the process group's backend (NCCL on the card, gloo on the CPU):
+gloo lets ranks share one card, which NCCL refuses. As in the JAX package,
+``--multihost`` takes no ``--model-parallel`` above 1, and without
+``--multihost`` the joining flags are ignored and a process is a world of
+one, where ``--model-parallel`` falls back to 1: the single-device step::
+
+    python -m network_interpretation_imagenet_tpu_torch.cli.main -a resnet18 --synthetic \
+        --multihost --coordinator 127.0.0.1:29500 --num-processes 2 --process-id R
 """
 
 from __future__ import annotations
@@ -32,12 +46,9 @@ from functools import partial
 
 from network_interpretation_imagenet_tpu_torch.config import TrainConfig
 
-MULTI_NOT_PORTED = ("error: {flag}: multi-process and tensor-parallel training are not ported "
-                    "yet (ROADMAP.md section A, item 7); train on one device")
-
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="ImageNet training on one GPU")
+    p = argparse.ArgumentParser(description="ImageNet training on GPUs")
     p.add_argument("data", nargs="?", default=None,
                    help="path to dataset (ImageFolder train/ and val/ subdirs)")
     p.add_argument("--arch", "-a", default="resnet18",
@@ -82,31 +93,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (the card unless cpu is asked for)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="devices per tensor-parallel group (only 1: ROADMAP item 7)")
+                   help="devices per tensor-parallel group (rest go to data "
+                        "parallelism over the batch; a world of one process falls back to 1)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process data-parallel training (ROADMAP item 7)")
+                   help="multi-process data-parallel training: join the process group, "
+                        "each rank decodes only its slice of the GLOBAL batch, rank 0 "
+                        "owns checkpoints/scores")
     p.add_argument("--coordinator", default=None,
                    help="(--multihost) coordinator address host:port")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (default: nccl with --device cuda, "
+                        "gloo with --device cpu); gloo lets ranks share one card")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, given in (("--multihost", args.multihost),
-                        ("--model-parallel", args.model_parallel != 1),
-                        ("--coordinator", args.coordinator is not None),
-                        ("--num-processes", args.num_processes is not None),
-                        ("--process-id", args.process_id is not None)):
-        if given:
-            print(MULTI_NOT_PORTED.format(flag=flag), file=sys.stderr)
-            return 2
 
     from network_interpretation_imagenet_tpu_torch.data.image_folder import ImageFolderDataset
     from network_interpretation_imagenet_tpu_torch.data.imagenet_train import TrainImageFolder
     from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.parallel import make_mesh, multihost
     from network_interpretation_imagenet_tpu_torch.train import Trainer
+
+    rank, world, mesh = 0, 1, None
+    if args.multihost:
+        if args.model_parallel > 1:
+            # The JAX CLI's refusal, kept: its checkpoints read the local replica.
+            # The port's gather the shards, and the API (Trainer(mesh=make_mesh(
+            # model_parallel=N))) trains the model axis across processes.
+            print("error: --multihost supports data parallelism only (--model-parallel "
+                  "must be 1, as in the JAX package; shard the model axis through "
+                  "Trainer(mesh=make_mesh(model_parallel=N)))", file=sys.stderr)
+            return 2
+        if not multihost.initialize_distributed(args.coordinator, args.num_processes,
+                                                args.process_id, backend=args.dist_backend,
+                                                device=args.device):
+            # Two processes each silently running as "rank 0" would race on the
+            # shared checkpoint directory and not be distributed at all.
+            print("error: --multihost could not initialize torch.distributed — pass "
+                  "--coordinator/--num-processes/--process-id or set MASTER_ADDR, "
+                  "MASTER_PORT, WORLD_SIZE and RANK (refusing to degrade to a silent "
+                  "single-process run)", file=sys.stderr)
+            return 2
+        rank, world = multihost.process_index(), multihost.process_count()
+        if args.batch_size % world:
+            print(f"error: --batch-size {args.batch_size} (GLOBAL) must divide evenly "
+                  f"across {world} processes", file=sys.stderr)
+            return 2
+        mesh = make_mesh(device=args.device)
+    # Without --multihost no process group is built: a world of one process,
+    # whose mesh (model_parallel falling back to 1) is the single-device step.
 
     # -- data ---------------------------------------------------------------
     if args.synthetic:
@@ -118,10 +157,21 @@ def main(argv=None):
         num_classes = 8
         n = args.limit_images or 256
         x, y = synthetic_classification_batch(args.seed, n, args.crop, 3, num_classes)
-        train_factory = ArrayLoader(x, y, args.batch_size, shuffle=True, seed=args.seed)
+        # Across processes the partial global batch is dropped (_RankSlice), so
+        # the loader's length, steps_per_epoch, counts only full batches: the
+        # mid-epoch save's suppression on the last batch relies on it.
+        train_factory = ArrayLoader(x, y, args.batch_size, shuffle=True, seed=args.seed,
+                                    drop_last=world > 1)
         val_loader = ArrayLoader(x[-max(n // 4, args.batch_size):],
                                  y[-max(n // 4, args.batch_size):], args.batch_size)
         steps_per_epoch = len(train_factory)
+        if world > 1:
+            # Every rank builds the same loader (same seed, same shuffles) and
+            # feeds its contiguous rows of each full global batch; validation
+            # strides every batch's items instead, the counts summed across
+            # ranks (Trainer's eval_local_metrics).
+            train_factory = _RankSlice(train_factory, rank, world, args.batch_size)
+            val_loader = _RankStride(val_loader, rank, world)
     else:
         if not args.data:
             print("error: DIR positional argument (or --synthetic) required", file=sys.stderr)
@@ -147,7 +197,14 @@ def main(argv=None):
                   f"batch exists (partial batches are dropped)", file=sys.stderr)
             return 2
         steps_per_epoch = max(1, n_train // args.batch_size)
-        train_factory = partial(_train_epoch_loader, train_set, args, train_indices)
+        process_slice = (rank, world) if world > 1 else None
+        train_factory = partial(_train_epoch_loader, train_set, args, train_indices,
+                                process_slice)
+        if world > 1:
+            # Validation covers every image: rank-strided indices (no global
+            # batch to fill, no dropped tail), counts summed across ranks.
+            vi = list(val_indices if val_indices is not None else range(len(val_set)))
+            val_indices = vi[rank::world]
         val_loader = _ValLoader(val_set, args, val_indices)
 
     # -- model + trainer ----------------------------------------------------
@@ -160,8 +217,11 @@ def main(argv=None):
         print_freq=args.print_freq,
     )
     save_dir = args.resume or os.path.join(args.save, f"imagenet-{args.arch}")
-    t = Trainer(bundle, cfg, steps_per_epoch=steps_per_epoch, save_dir=save_dir,
-                arch_args={"arch": args.arch}, save_every_steps=args.save_every_steps,
+    # Across processes the loaders give each rank its rows already.
+    globalize = (lambda images, labels: (images, labels)) if world > 1 else None
+    t = Trainer(bundle, cfg, steps_per_epoch=steps_per_epoch, mesh=mesh, save_dir=save_dir,
+                arch_args={"arch": args.arch}, globalize=globalize,
+                eval_local_metrics=world > 1, save_every_steps=args.save_every_steps,
                 device=args.device)
 
     if args.pretrained:
@@ -192,11 +252,12 @@ def main(argv=None):
     return 0
 
 
-def _train_epoch_loader(train_set, args, indices, epoch, skip=0):
+def _train_epoch_loader(train_set, args, indices, process_slice, epoch, skip=0):
     from network_interpretation_imagenet_tpu_torch.data.imagenet_train import epoch_batches
 
     return epoch_batches(train_set, args.batch_size, epoch=epoch, seed=args.seed, shuffle=True,
-                         workers=args.workers, drop_last=True, indices=indices, skip=skip)
+                         workers=args.workers, drop_last=True, indices=indices,
+                         process_slice=process_slice, skip=skip)
 
 
 class _ValLoader:
@@ -212,6 +273,77 @@ class _ValLoader:
 
         return epoch_batches(self.val_set, self.args.batch_size, epoch=0, seed=0, shuffle=False,
                              workers=self.args.workers, indices=self.indices)
+
+
+class _RankSlice:
+    """This rank's contiguous rows of every FULL global batch (the
+    synthetic train path: every rank generates the same global batches, and
+    the ranks' rows concatenate in rank order to the single-process batch).
+    A partial global batch is dropped: data-parallel training across
+    processes implies drop_last on the global batch."""
+
+    def __init__(self, inner, rank, world, global_batch):
+        self.inner = inner
+        self.rank, self.world = rank, world
+        self.global_batch = int(global_batch)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def _slices(self, it):
+        local = self.global_batch // self.world
+        for images, labels in it:
+            if len(labels) != self.global_batch:
+                continue   # a partial tail: dropped
+            lo = self.rank * local
+            yield images[lo:lo + local], labels[lo:lo + local]
+
+    def __call__(self, epoch):
+        if callable(self.inner):
+            inner = self.inner(epoch)
+        else:
+            if hasattr(self.inner, "set_epoch"):
+                # The stateful loader's shuffle stays a function of (seed,
+                # epoch): a mid-epoch resume replays the same stream.
+                self.inner.set_epoch(epoch)
+            inner = iter(self.inner)
+        gen = self._slices(inner)
+        if hasattr(self.inner, "__len__"):
+            # A sized epoch lets the Trainer suppress a mid-epoch save on the
+            # last (full) batch: the inner loader drops its last partial batch,
+            # so its length is the full-batch count.
+            return _SizedIter(gen, len(self.inner))
+        return gen
+
+    def __iter__(self):
+        return self._slices(iter(self.inner))
+
+
+class _SizedIter:
+    """A one-epoch generator with a known batch count."""
+
+    def __init__(self, gen, n):
+        self._gen, self._n = gen, n
+
+    def __iter__(self):
+        return iter(self._gen)
+
+    def __len__(self):
+        return self._n
+
+
+class _RankStride:
+    """Items ``rank::world`` of every batch (the synthetic val path): the
+    ranks' items are disjoint and together cover every item, with no
+    divisibility to meet and no tail dropped. Pairs with
+    ``Trainer(eval_local_metrics=True)``, which sums the counts across ranks."""
+
+    def __init__(self, inner, rank, world):
+        self.inner, self.rank, self.world = inner, rank, world
+
+    def __iter__(self):
+        for images, labels in iter(self.inner):
+            yield images[self.rank::self.world], labels[self.rank::self.world]
 
 
 def _load_pretrained(t, bundle, args):
@@ -230,7 +362,7 @@ def _load_pretrained(t, bundle, args):
     optional = getattr(bundle.module, "optional_prefixes", ())
     state_dict = {k: v for k, v in state_dict.items() if not k.startswith(optional)}
     _check_tree_shapes(state_dict, t.variables(), args.pretrained)
-    t.load_variables(state_dict)
+    t.load_variables(state_dict)   # each rank takes its shards
     print(f"=> initialized from pretrained weights '{args.pretrained}'")
 
 
@@ -252,7 +384,10 @@ def _check_tree_shapes(new, like, source):
 
 def _emit(args, payload):
     from network_interpretation_imagenet_tpu_torch.cli import common
+    from network_interpretation_imagenet_tpu_torch.parallel import multihost
 
+    if multihost.process_index() != 0:
+        return   # rank 0 owns the result file on the shared filesystem
     common.emit_result(args.save, "imagenet_train_result.json", payload)
 
 

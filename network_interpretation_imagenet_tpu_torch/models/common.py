@@ -1,7 +1,8 @@
 """Shared model pieces (port of ``models/common.py`` of the JAX package):
-pools with the JAX package's semantics, flax's training BatchNorm,
-dropout and the draws of a train-mode forward, ``ConvBNRelu``, the seeded
-random init every classifier shares, and inference BatchNorm folding.
+pools with the JAX package's semantics, flax's training BatchNorm (on one
+rank's rows of a global batch too), dropout and the draws of a train-mode
+forward, ``ConvBNRelu``, the seeded random init every classifier shares,
+and inference BatchNorm folding.
 
 Every function here takes NCHW tensors (in any memory format: the port keeps
 activations NHWC in memory as channels_last views).
@@ -12,7 +13,7 @@ from __future__ import annotations
 import contextlib
 import math
 import re
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,18 +57,60 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the *biased* batch variance, as flax's ``BatchNorm`` does
     (``models/common.py:25`` of the JAX package); torch's uses the unbiased
     one, n / (n - 1) larger. The output is normalized by the batch
-    statistics in both."""
+    statistics in both.
+
+    Within :func:`global_batch_stats` the batch is one rank's rows of a
+    global batch, and the statistics are the global batch's: ``reduce``
+    sums ``[sum x, sum x^2, n]`` over the ranks (differentiably), and the
+    variance is flax's ``E[x^2] - E[x]^2`` clipped at 0
+    (``use_fast_variance``), reduced in at least f32."""
+
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self.num_batches_tracked.add_(1)
         m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        if self.reduce is not None:
+            return self._global_forward(x, m)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_forward(self, x: torch.Tensor, m: float) -> torch.Tensor:
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        sums = self.reduce(torch.cat([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3)),
+                                      xs.new_full((1,), x.numel() // c)]))
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((xs - mean[:, None, None]) * scale[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module, reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, every :class:`BatchNorm2d` of ``module`` in training
+    mode normalizes by the statistics of the global batch whose rows the
+    ranks hold: ``reduce(t)`` returns ``t`` summed over those ranks, with a
+    backward that sums the gradients likewise (a differentiable all-reduce
+    over the data axis). The JAX step is one program over the global batch,
+    so its BatchNorm sees every row; a per-rank BatchNorm would not."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.reduce = reduce
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.reduce = None
 
 
 class Draws:
@@ -76,21 +119,34 @@ class Draws:
     (``uniform < 1 - rate``, ``uniform >= death_rate``) from ``generator``
     (on the activations' device; torch's default generator where None),
     unless ``injected`` holds the decision under the drawing module's name
-    (a test feeds the JAX package's draws in)."""
+    (a test feeds the JAX package's draws in).
+
+    ``rows=(index, count)`` marks a forward of one rank's rows, slice
+    ``index`` of ``count`` equal slices of a global batch: a keep mask is
+    drawn (or injected) at the global batch's shape and this rank's rows are
+    taken, so that every rank, its generator seeded alike, draws the same
+    numbers and stays in step with the others, as the JAX step's one draw
+    over the global batch. The alive flags are 0-d and the same on every rank."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
-                 injected: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+                 injected: Optional[Mapping[str, torch.Tensor]] = None,
+                 rows: Optional[Tuple[int, int]] = None) -> None:
         self.generator = generator
         self.injected = dict(injected or {})
+        self.rows = rows
 
     def _uniform(self, shape, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, device=device)
 
     def keep(self, name: str, shape, rate: float, device) -> torch.Tensor:
-        """Dropout's bool keep mask of ``shape``."""
+        """Dropout's bool keep mask of ``shape`` (this rank's rows)."""
+        index, count = self.rows or (0, 1)
+        n = int(shape[0])
         if name in self.injected:
-            return self.injected[name].to(device=device, dtype=torch.bool)
-        return self._uniform(shape, device) < 1.0 - rate
+            mask = self.injected[name].to(device=device, dtype=torch.bool)
+        else:
+            mask = self._uniform((n * count, *shape[1:]), device) < 1.0 - rate
+        return mask[index * n:(index + 1) * n] if count > 1 else mask
 
     def alive(self, name: str, death_rate: float, device) -> torch.Tensor:
         """Stochastic depth's 0-d bool: the residual branch is added."""

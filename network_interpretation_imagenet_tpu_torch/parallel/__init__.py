@@ -3,8 +3,10 @@ package): one process per device, the ranks laid out as a ("data", "model")
 mesh (``parallel.mesh``). The mask and image batches of every explanation
 shard over "data" (``parallel.sharded_engine`` and the ``mesh=`` of the
 explanation functions), and val-set sweeps stride their images across
-processes (``parallel.multihost``). The train step runs on one device; its
-mesh (data and tensor parallelism) waits for ROADMAP.md section A, item 7.
+processes (``parallel.multihost``). The train step (``parallel.train_step``)
+steps each rank's rows of the global batch with BatchNorm's statistics and
+the gradients reduced over "data", and splits wide parameters' output
+channels over "model" (:func:`param_shardings`).
 """
 
 from network_interpretation_imagenet_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -21,4 +23,5 @@ from network_interpretation_imagenet_tpu_torch.parallel.sharded_engine import ( 
 from network_interpretation_imagenet_tpu_torch.parallel.train_step import (  # noqa: F401
     TrainState,
     make_sharded_train_step,
+    param_shardings,
 )

@@ -12,6 +12,10 @@ with the same replicated inputs, evaluates its slice of the data axis, and
 gets the whole result back from one all-gather (:func:`all_gather_rows`).
 Ranks along the model axis compute the same slice, as a JAX ``shard_map``
 whose specs name only the data axis replicates it over the model axis.
+The sharded train step (``parallel.train_step``) uses the rest: an axis's
+process group, a differentiable all-reduce (BatchNorm's statistics), and
+the all-gather and slice of tensors sharded along dim 0 (parameters split
+over the model axis).
 
 A collective that fails raises :class:`CollectiveError`, which no sweep
 catches per image: a failing rank fails the run, and a rank left waiting on
@@ -119,9 +123,85 @@ def _fingerprint(values) -> torch.Tensor:
 
 
 def _through_host(group) -> bool:
-    """gloo's collectives take host tensors here: the few KB of outcomes
-    cross through the host; NCCL's stay on the card."""
+    """gloo's collectives take host tensors here (outcomes, statistics and a
+    train step's gradients cross through the host); NCCL's stay on the card."""
     return dist.get_backend(group) != "nccl"
+
+
+def _wire(group) -> torch.device:
+    """Where a collective's buffer lives: the host for gloo, the card for NCCL."""
+    return (torch.device("cpu") if _through_host(group)
+            else torch.device("cuda", torch.cuda.current_device()))
+
+
+def axis_group(mesh: DeviceMesh, axis: str = "data"):
+    """The process group of this rank's ranks along ``axis``."""
+    return mesh.get_group(axis)
+
+
+def _all_reduce(value: torch.Tensor, group, what: str) -> torch.Tensor:
+    """``value`` summed over ``group``, on its device (a new tensor)."""
+    t = value.detach().to(_wire(group), copy=True)
+    try:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    except Exception as e:  # noqa: BLE001 - re-raised as the run's failure
+        raise CollectiveError(f"all_reduce over {what!r} failed: {e!r}") from e
+    return t.to(value.device)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """An all-reduce sum whose backward all-reduces the gradient: the
+    gradient of a sum of every rank's objective with respect to a value that
+    each rank's sum term shares."""
+
+    @staticmethod
+    def forward(ctx, value, group, what):
+        ctx.group, ctx.what = group, what
+        return _all_reduce(value, group, what)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group, ctx.what), None, None
+
+
+def differentiable_sum(mesh: DeviceMesh, axis: str = "data") -> Callable[[torch.Tensor],
+                                                                         torch.Tensor]:
+    """``t -> t`` summed over ``axis``, differentiably (the backward sums the
+    gradients over the same ranks): the reduction of BatchNorm's statistics
+    in a sharded train step (``models.common.global_batch_stats``)."""
+    group = axis_group(mesh, axis)
+    return lambda t: _SumOverRanks.apply(t, group, axis)
+
+
+def shard_dim0(mesh: DeviceMesh, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """This rank's slice of ``t`` along dim 0, which ``axis`` must divide (a
+    parameter's output channels, sharded over the model axis)."""
+    return t[_local_slice(mesh, int(t.shape[0]), axis)]
+
+
+def all_gather_dim0(mesh: DeviceMesh, shards: Sequence[torch.Tensor],
+                    axis: str = "model") -> List[torch.Tensor]:
+    """The whole tensors whose dim-0 slices the ranks along ``axis`` hold,
+    each the ranks' ``shards`` concatenated along dim 0 in rank order, on
+    its shard's device and dtype: ONE all-gather of every shard packed flat
+    (on the card with NCCL, through the host with gloo)."""
+    if not shards:
+        return []
+    group = axis_group(mesh, axis)
+    d = axis_size(mesh, axis)
+    flat = torch.cat([t.detach().reshape(-1).to(_wire(group)) for t in shards])
+    parts = [torch.empty_like(flat) for _ in range(d)]
+    try:
+        dist.all_gather(parts, flat, group=group)
+    except Exception as e:  # noqa: BLE001 - re-raised as the run's failure
+        raise CollectiveError(f"all_gather over {axis!r} failed: {e!r}") from e
+    out, off = [], 0
+    for t in shards:
+        size = t.numel()
+        full = torch.cat([p[off:off + size].view(t.shape) for p in parts])
+        out.append(full.to(t.device, t.dtype))
+        off += size
+    return out
 
 
 def all_gather_rows(mesh: DeviceMesh, tensors: Sequence[torch.Tensor], axis: str = "data",
@@ -134,11 +214,10 @@ def all_gather_rows(mesh: DeviceMesh, tensors: Sequence[torch.Tensor], axis: str
     in the same buffer; ranks that passed different inputs raise
     :class:`ReplicationError` on every rank, since every rank sees every
     fingerprint."""
-    group = mesh.get_group(axis)
+    group = axis_group(mesh, axis)
     d = axis_size(mesh, axis)
     fp = _fingerprint(fingerprint)
-    dev = (torch.device("cpu") if _through_host(group)
-           else torch.device("cuda", torch.cuda.current_device()))
+    dev = _wire(group)
     flat = torch.cat([fp.to(dev)] + [t.detach().reshape(-1).to(dev, torch.float64)
                                      for t in tensors])
     parts = [torch.empty_like(flat) for _ in range(d)]
@@ -162,17 +241,12 @@ def all_gather_rows(mesh: DeviceMesh, tensors: Sequence[torch.Tensor], axis: str
     return out
 
 
-def all_reduce_sum(mesh: DeviceMesh, value: torch.Tensor, axis: str = "data") -> torch.Tensor:
-    """``value`` summed over ``axis`` (JAX's ``psum``), on its device."""
-    group = mesh.get_group(axis)
-    t = value.detach().clone()
-    if _through_host(group):
-        t = t.cpu()
-    try:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    except Exception as e:  # noqa: BLE001 - re-raised as the run's failure
-        raise CollectiveError(f"all_reduce over {axis!r} failed: {e!r}") from e
-    return t.to(value.device)
+def all_reduce_sum(mesh: DeviceMesh, value: torch.Tensor,
+                   axis: Optional[str] = "data") -> torch.Tensor:
+    """``value`` summed over ``axis`` (JAX's ``psum``), on its device; with
+    ``axis`` None over every process of the world (the default group)."""
+    return _all_reduce(value, None if axis is None else axis_group(mesh, axis),
+                       axis or "world")
 
 
 def pad_rows(x: torch.Tensor, total: int, fill=None) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Classifier training harness (port of ``train/harness.py`` of the JAX
-package), on one device.
+package), on one device or on a mesh of ranks.
 
 The reference's CIFAR harness (``generate_gp_training_data_cifar.py:81-234``)
 and optimizer flags (``args.py:83-117``): sgd / rmsprop / adam with momentum
 and weight decay, the stepped lr schedule, ``scores.tsv`` rewritten each
 epoch, early stopping on the val error with ``patience``, a best-checkpoint
 copy and resume, mid-epoch included. The step is
-``parallel.train_step``'s.
+``parallel.train_step``'s, with or without a mesh.
 
 The optimizers are optax's, written out (``torch.optim``'s differ): the
 weight decay is added to the gradient *before* the optimizer core
@@ -39,9 +39,17 @@ import torch.nn.functional as F
 from network_interpretation_imagenet_tpu_torch.config import TrainConfig
 from network_interpretation_imagenet_tpu_torch.device import resolve_device
 from network_interpretation_imagenet_tpu_torch.models import ModelBundle
+from network_interpretation_imagenet_tpu_torch.parallel import multihost
+from network_interpretation_imagenet_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    axis_size,
+    shard_batch,
+)
 from network_interpretation_imagenet_tpu_torch.parallel.train_step import (
-    MESH_NOT_PORTED,
+    gather_full,
     make_sharded_train_step,
+    param_shardings,
+    take_shards,
 )
 from network_interpretation_imagenet_tpu_torch.utils import convert
 from network_interpretation_imagenet_tpu_torch.utils.checkpoint import (
@@ -179,17 +187,30 @@ class Trainer:
     ``fit`` skips the batches already trained. The loaders' per-(seed,
     epoch) order and per-(seed, epoch, index) augmentation, and the
     generator's state in the checkpoint, make a resumed run's updates those
-    of an uninterrupted one. ``mesh``, ``globalize`` and
-    ``eval_local_metrics`` (multi-device and multi-process training) wait
-    for ROADMAP.md section A, item 7."""
+    of an uninterrupted one.
+
+    ``mesh`` (``parallel.make_mesh``) trains with the sharded step; every
+    rank runs the same loop. The mesh's dimension names, (data, model) in
+    ``make_mesh``'s order, name the axes of the step, the shardings, the
+    batch slices and the sums. ``globalize(images, labels)`` maps one host
+    batch to this rank's rows of the global batch: by default its slice of
+    a batch every rank holds whole (``shard_batch`` over the data axis); a
+    multi-process caller whose loaders already give each rank its rows
+    (``cli.main --multihost``) passes the identity. The meters count the
+    global batch. ``eval_local_metrics`` evaluates each rank's own val
+    batches with local tensors, and the sums ``[loss * n, correct,
+    correct5, n]`` cross the processes once per ``evaluate()``, in f64;
+    without it, with a mesh, each rank evaluates its ``globalize`` rows and
+    the sums cross the data axis once. Rank 0 alone writes ``scores.tsv`` and the
+    checkpoints, which hold whole tensors (the model axis's shards
+    gathered); every rank enters ``save`` and meets the others at a barrier
+    after it, and ``resume`` gives each rank its shards."""
 
     def __init__(self, bundle: ModelBundle, cfg: TrainConfig, steps_per_epoch: int, mesh=None,
                  save_dir: Optional[str] = None, logger: Optional[PhaseLogger] = None,
                  arch_args: Optional[dict] = None, globalize=None,
                  eval_local_metrics: bool = False, save_every_steps: int = 0,
                  device=None) -> None:
-        if mesh is not None or globalize is not None or eval_local_metrics:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.bundle = bundle
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -201,8 +222,22 @@ class Trainer:
         self.print_freq = cfg.print_freq
         self.steps_per_epoch = int(steps_per_epoch)
         self.optimizer = make_optimizer(cfg, self.steps_per_epoch)
-        self.init_fn, self.step_fn = make_sharded_train_step(bundle, None, self.optimizer,
-                                                             device=self.device)
+        self.mesh = mesh
+        self.eval_local_metrics = bool(eval_local_metrics)
+        self.data_axis, self.model_axis = (("data", "model") if mesh is None
+                                           else mesh.mesh_dim_names)
+        self.data_size = 1 if mesh is None else axis_size(mesh, self.data_axis)
+        self.shardings = {} if mesh is None else param_shardings(
+            dict(bundle.module.named_parameters()), mesh, self.model_axis)
+        # Rank 0 writes the files of a mesh's run; every rank meets at a barrier after.
+        self.writer = mesh is None or multihost.process_index() == 0
+        if globalize is None and mesh is not None:
+            def globalize(images, labels):
+                return (shard_batch(mesh, images, self.data_axis),
+                        shard_batch(mesh, labels, self.data_axis))
+        self.globalize = globalize or (lambda images, labels: (images, labels))
+        self.init_fn, self.step_fn = make_sharded_train_step(
+            bundle, mesh, self.optimizer, self.data_axis, self.model_axis, device=self.device)
         self.state = self.init_fn(cfg.seed)
         self.start_epoch = 0
         self.best_err1 = float("inf")
@@ -210,31 +245,45 @@ class Trainer:
         self.save_every_steps = int(save_every_steps)
         self.resume_skip_steps = 0  # set by resume() from a mid-epoch checkpoint
 
+    def _whole(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors of this rank's shards (collective along the model
+        axis where a parameter is sharded)."""
+        return gather_full(self.mesh, {n: t.detach() for n, t in tensors.items()},
+                           self.shardings, self.model_axis)
+
     def variables(self) -> Dict[str, torch.Tensor]:
         """The model's ``state_dict`` entries (parameters and BatchNorm
-        statistics) as they stand, on the device."""
-        return {n: t.detach() for n, t in {**self.state.params, **self.state.buffers}.items()}
+        statistics) as they stand, on the device, whole (with parameters
+        sharded over the model axis, every rank of it must call this)."""
+        return {**self._whole(self.state.params),
+                **{n: t.detach() for n, t in self.state.buffers.items()}}
 
     def load_variables(self, state_dict: Dict[str, torch.Tensor]) -> None:
-        """Overwrite the parameters and statistics in place (device and
-        memory format kept); the optimizer state stays."""
+        """Overwrite the parameters and statistics in place with whole
+        tensors, each rank taking its shards (device and memory format
+        kept); the optimizer state stays."""
+        mine = take_shards(self.mesh, {n: torch.as_tensor(state_dict[n])
+                                       for n in self.state.params if n in state_dict},
+                           self.shardings, self.model_axis)
         with torch.no_grad():
             for n, t in {**self.state.params, **self.state.buffers}.items():
                 if n in state_dict:
-                    t.copy_(state_dict[n])
+                    t.copy_(mine.get(n, state_dict[n]))
 
     # -- persistence --------------------------------------------------------
 
     def save(self, epoch: int, is_best: bool, mid_epoch_step: int = 0) -> None:
         """``mid_epoch_step > 0`` marks an epoch in progress: resume()
         re-enters ``epoch`` skipping that many batches (an epoch-end save
-        stores 0, and resume starts at ``epoch + 1``)."""
+        stores 0, and resume starts at ``epoch + 1``). With a mesh every
+        rank enters it: the shards are gathered, rank 0 writes, and the ranks
+        meet at a barrier."""
         if not self.save_dir:
             return
         variables = convert.jax_variables(self.variables(), self.bundle.module)
         opt = {"count": np.asarray(self.state.opt_state["count"], np.int64)}
         for slot in SLOTS[self.optimizer.kind]:
-            opt[slot] = dict(self.state.opt_state[slot])
+            opt[slot] = self._whole(self.state.opt_state[slot])
         blob = {
             "params": variables["params"],
             "batch_stats": variables.get("batch_stats", {}),
@@ -249,7 +298,12 @@ class Trainer:
         }
         if self.arch_args:
             blob["arch_args"] = dict(self.arch_args)
-        save_checkpoint(blob, self.save_dir, is_best=is_best)
+        if self.writer:
+            save_checkpoint(blob, self.save_dir, is_best=is_best)
+        if self.mesh is not None:
+            # utils.checkpoint has no barrier of its own (Orbax's had): no rank
+            # may go on, or resume, before rank 0's files are whole.
+            multihost.barrier()
 
     @staticmethod
     def peek_arch_args(save_dir: str) -> Optional[dict]:
@@ -276,8 +330,11 @@ class Trainer:
         opt = self.state.opt_state
         with torch.no_grad():
             for slot in SLOTS[self.optimizer.kind]:
+                saved = take_shards(self.mesh, {n: torch.from_numpy(np.asarray(
+                    blob["opt"][slot][n])) for n in opt[slot]}, self.shardings,
+                    self.model_axis)
                 for n, t in opt[slot].items():
-                    t.copy_(torch.from_numpy(np.asarray(blob["opt"][slot][n])))
+                    t.copy_(saved[n])
         opt["count"] = int(blob["opt"]["count"])
         self.state.generator.set_state(torch.from_numpy(np.asarray(blob["rng"], np.uint8)))
         self.state = self.state._replace(step=int(blob.get("step", 0)))
@@ -302,15 +359,18 @@ class Trainer:
         ``print_freq > 0`` prints the stock ImageNet trainer's per-batch line
         (Time / Data / Loss / Prec@1 / Prec@5, ``generate_gp_training_data_
         imagenet.py:281-296``). The step's metrics come to the host in one
-        copy per step, the JAX harness's one ``device_get``."""
+        copy per step, the JAX harness's one ``device_get``. With a mesh the
+        loader's batches go through ``globalize`` and the meters count the
+        global batch."""
         loss_m, top1_m, top5_m = AverageMeter(), AverageMeter(), AverageMeter()
         batch_t, data_t = AverageMeter(), AverageMeter()
         steps = len(loader) if hasattr(loader, "__len__") else None
         end = time.time()
         for i, (images, labels) in enumerate(loader):
             data_t.update(time.time() - end)
+            images, labels = self.globalize(images, labels)
             self.state, metrics = self.step_fn(self.state, images, labels)
-            n = int(len(labels))
+            n = int(len(labels)) * self.data_size   # the global batch
             loss, top1, top5 = torch.stack([metrics["loss"], metrics["top1"],
                                             metrics["top5"]]).tolist()
             loss_m.update(loss, n)
@@ -343,10 +403,16 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, loader) -> Tuple[float, float, float]:
-        """(mean loss, top-1 error %, top-5 error %) of the eval-mode model."""
+        """(mean loss, top-1 error %, top-5 error %) of the eval-mode model;
+        with a mesh, of every rank's batches (one collective)."""
         loss_sum, correct, correct5, total = 0.0, 0, 0, 0
         variables = self.variables()
         for images, labels in loader:
+            if self.eval_local_metrics:
+                if len(labels) == 0:
+                    continue
+            elif self.mesh is not None:
+                images, labels = self.globalize(images, labels)
             x = torch.as_tensor(np.ascontiguousarray(images)).to(self.device, torch.float32)
             y = torch.as_tensor(np.asarray(labels)).to(self.device, torch.int64)
             logits = self.bundle.logits(variables, x).float()
@@ -361,6 +427,13 @@ class Trainer:
             correct += int(top1)
             correct5 += int(top5)
             total += n
+        if self.mesh is not None:
+            # ONE collective: over every process (each evaluated its own
+            # batches), else over the data axis (each its globalize rows).
+            sums = all_reduce_sum(self.mesh, torch.tensor(
+                [loss_sum, correct, correct5, total], dtype=torch.float64),
+                None if self.eval_local_metrics else self.data_axis).tolist()
+            loss_sum, correct, correct5, total = sums[0], int(sums[1]), int(sums[2]), int(sums[3])
         err1 = 100.0 * (1.0 - correct / max(total, 1))
         err5 = 100.0 * (1.0 - correct5 / max(total, 1))
         return loss_sum / max(total, 1), err1, err5
@@ -435,8 +508,8 @@ class Trainer:
         return history
 
     def _write_scores(self, history: List[Dict]) -> None:
-        if not self.save_dir:
-            return
+        if not self.save_dir or not self.writer:
+            return   # rank 0 owns scores.tsv on the shared filesystem
         os.makedirs(self.save_dir, exist_ok=True)
         cols = list(history[0].keys())
         lines = ["\t".join(cols)] + ["\t".join(str(row[c]) for c in cols) for row in history]

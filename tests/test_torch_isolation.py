@@ -182,7 +182,8 @@ def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import jax|from jax|.*network_interpretation_imagenet_tpu\.)",
                          re.MULTILINE)
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tests", "torch_parallel_worker.py")]
+             os.path.join(REPO, "tests", "torch_parallel_worker.py"),
+             os.path.join(REPO, "tests", "torch_parallel_train_worker.py")]
     for root, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

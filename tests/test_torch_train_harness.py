@@ -97,13 +97,46 @@ def test_cli_main_synthetic_matches_jax(tmp_path, monkeypatch):
     assert os.path.isdir(tmp_path / "port" / "imagenet-mnist_cnn" / "model_best")
 
 
+SMALL = ["-a", "mnist_cnn", "--synthetic", "--crop", "32", "--limit-images", "32", "-b", "16",
+         "--epochs", "1", "-p", "0", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    """The small CLI run without the multi-process flags."""
+    out = tmp_path_factory.mktemp("plain")
+    assert pmain.main(SMALL + ["--save", str(out)]) == 0
+    with open(out / "imagenet_train_result.json") as f:
+        return json.load(f)
+
+
 @pytest.mark.parametrize("flags", [["--multihost"], ["--model-parallel", "2"],
                                    ["--coordinator", "localhost:1234"],
-                                   ["--num-processes", "2"], ["--process-id", "1"]])
-def test_multi_process_flags_exit_2_naming_item_7(flags, capsys):
-    assert pmain.main(["--synthetic", "--device", "cpu"] + flags) == 2
+                                   ["--num-processes", "2"], ["--process-id", "1"],
+                                   ["--multihost", "--model-parallel", "2"]])
+def test_multi_process_flags_in_one_process(flags, plain_run, tmp_path, monkeypatch, capsys):
+    """What each flag does in a process with no coordinator, as in the JAX
+    CLI: --multihost alone refuses to degrade to a single-process run (exit
+    2), and with --model-parallel above 1 refuses first; --model-parallel 2
+    in a world of one process falls back to 1, and --coordinator,
+    --num-processes and --process-id without --multihost are ignored: each
+    trains as the run without them, result for result."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    rc = pmain.main(SMALL + flags + ["--save", str(tmp_path)])
     err = capsys.readouterr().err
-    assert flags[0] in err and "ROADMAP.md section A, item 7" in err
+    assert not torch.distributed.is_initialized()
+    if "--multihost" in flags:
+        assert rc == 2
+        want = ("supports data parallelism only" if "--model-parallel" in flags
+                else "--multihost could not initialize torch.distributed")
+        assert want in err and not os.path.exists(tmp_path / "imagenet-mnist_cnn")
+        return
+    assert rc == 0
+    with open(tmp_path / "imagenet_train_result.json") as f:
+        got = json.load(f)
+    assert {k: v for k, v in got.items() if k != "save_dir"} == \
+        {k: v for k, v in plain_run.items() if k != "save_dir"}
 
 
 def test_entry_point_needs_the_card_unless_cpu(tmp_path):

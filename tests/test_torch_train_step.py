@@ -38,6 +38,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 from torch_port_util import torch_threads
 from flax import linen as fnn
 from jax.sharding import NamedSharding, PartitionSpec
@@ -53,6 +54,8 @@ from network_interpretation_imagenet_tpu_torch.config import TrainConfig
 from network_interpretation_imagenet_tpu_torch.models import ModelBundle, create_model
 from network_interpretation_imagenet_tpu_torch.models.common import Draws
 from network_interpretation_imagenet_tpu_torch.models.densenet import create_densenet
+from network_interpretation_imagenet_tpu_torch.data.loaders import ArrayLoader
+from network_interpretation_imagenet_tpu_torch.parallel import make_mesh as make_port_mesh
 from network_interpretation_imagenet_tpu_torch.parallel import make_sharded_train_step
 from network_interpretation_imagenet_tpu_torch.train import harness
 from network_interpretation_imagenet_tpu_torch.utils import convert
@@ -61,6 +64,7 @@ STEPS_PER_EPOCH = 2   # with decay_epochs=(1,): the boundary is step 2, the thir
 LOSS_RTOL = 1e-5
 ATOL = 1e-5
 ADAM_OFF_SHARE = 1e-3   # under Adam, the share of a tensor's elements outside ATOL
+HISTORY_RTOL = 1e-4     # a Trainer's rounded history, meshless vs a mesh of one rank
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -303,10 +307,54 @@ def test_batchnorm_updates_running_variance_with_the_biased_variance():
                                      "num_batches_tracked"]
 
 
-def test_mesh_waits_for_item_7():
-    bundle = create_model("mnist_cnn", "mnist")
-    opt = harness.make_optimizer(TrainConfig(), 1)
-    with pytest.raises(NotImplementedError, match="section A, item 7"):
-        make_sharded_train_step(bundle, object(), opt, device="cpu")
-    with pytest.raises(NotImplementedError, match="section A, item 7"):
-        harness.Trainer(bundle, TrainConfig(), 1, globalize=lambda x, y: (x, y), device="cpu")
+@pytest.fixture
+def world1():
+    """A gloo world of one, started by ``make_mesh`` and destroyed after."""
+    assert not dist.is_initialized()
+    mesh = make_port_mesh(device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["mnist_cnn", "resnet18"])
+def test_mesh_of_world_1_equals_the_meshless_step(world1, arch):
+    """A step on a mesh of one rank (its collectives run: BatchNorm's
+    statistics and the gradients summed over the one rank, the statistics
+    by flax's E[x^2] - E[x]^2) against the meshless step from the same
+    parameters: the loss within LOSS_RTOL, top-1 and top-5 exactly,
+    parameters and statistics within ATOL; and a Trainer on the mesh (its
+    default globalize) fits the meshless Trainer's history over 4 steps at
+    lr 0.01 within HISTORY_RTOL on the losses (rounded to 5 decimals, and
+    the two variance formulas' rounding compounds from step 2 on, as in
+    the CLI histories of tests/test_torch_train_harness.py, held alike),
+    error rates exactly."""
+    size, channels = (28, 1) if arch == "mnist_cnn" else (32, 3)
+    bundle = create_model(arch, "mnist" if arch == "mnist_cnn" else "imagenet",
+                          num_classes=None if arch == "mnist_cnn" else 4)
+    cfg = TrainConfig(**_cfg("sgd", 0.05))
+    sd = bundle.init(0)
+    runs = []
+    for mesh in (None, world1):
+        init, step = make_sharded_train_step(bundle, mesh, harness.make_optimizer(cfg, 2),
+                                             device="cpu")
+        x, y = _batches(1, size, channels, 4)[0]
+        state, m = step(init(0, sd), x, y)
+        runs.append((state, [{k: float(v) for k, v in m.items()}]))
+    (plain, plain_m), (meshed, meshed_m) = runs
+    for got, want in zip(meshed_m, plain_m):
+        assert got["top1"] == want["top1"] and got["top5"] == want["top5"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+    for k, t in {**plain.params, **plain.buffers}.items():
+        other = {**meshed.params, **meshed.buffers}[k]
+        np.testing.assert_allclose(other.detach().float().numpy(), t.detach().float().numpy(),
+                                   rtol=0, atol=ATOL, err_msg=k)
+    x, y = _batches(1, size, channels, 4, batch=32)[0]
+    rows = [harness.Trainer(bundle, TrainConfig(lr=0.01, epochs=2), 2, mesh=mesh,
+                            device="cpu").fit(ArrayLoader(x, y, 16), ArrayLoader(x, y, 16))
+            for mesh in (None, world1)]
+    for got, want in zip(rows[1], rows[0]):
+        for k, v in want.items():
+            if "loss" in k:
+                np.testing.assert_allclose(got[k], v, rtol=HISTORY_RTOL, err_msg=k)
+            else:
+                assert got[k] == v, k
