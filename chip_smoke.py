@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ptrain-witness   # only the f32 parting witness (see 27)
+    python3 chip_smoke.py --b2                # only B2's checks and timings (see b2_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -34,8 +35,11 @@ kernel against its plain PyTorch version on the card:
      predicts and chunk) at all four shapes and at B=4 at two; per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
      block and a bf16 cuDNN yardstick; at the BO's batches the same
-     yardstick eager, and (last of all, [B2 graphs]) with the kernel as CUDA
-     graph replays; the built library's SASS must hold HGMMA (wgmma)
+     yardstick eager, each launch's plan (N tile, K splits, blocks) and the
+     microseconds each of a block's three launches adds, and at B = 1, 3
+     and 8 (split-K plans) two eager calls and a CUDA graph replay of every
+     chain held bitwise equal; and (last of all, [B2 graphs]) with the kernel
+     as CUDA graph replays; the built library's SASS must hold HGMMA (wgmma)
      instructions;
   5. the random-window path: Felzenszwalb -> predict_one ->
      random_window_saliency (1024 masks) -> localization_score, with the
@@ -54,7 +58,8 @@ kernel against its plain PyTorch version on the card:
      seeds (B1 88, B2 44), every image's scores against the engine's;
      [bo timing]: warm p50 latencies (graph, eager, host loop), streams of
      16 distinct images from an empty cache (single calls, and N=8 calls),
-     the device's busy share of one replay, the GP step per iteration;
+     the device's busy share of one replay and B2's ms and share of it, the
+     GP step per iteration;
   8. the flagship CLI on the card (main, or explain where PIL or matplotlib
      is missing), counters held (B1 11, B2 48);
   9. [gen]: the random-mask generator's compute (100 window masks and the
@@ -107,8 +112,9 @@ kernel against its plain PyTorch version on the card:
      3x3 B2 does not run) with evals/s; Wide-ResNet-101-2's plan at B=4
      (B2 48: its stage 3 is one chain of 22 blocks); Wide-ResNet-50-2's four
      chain shapes (C = 2P, P up to 1024) block by block against the plain
-     version and timed at B=256 against bf16 cuDNN and the chain bound, and
-     a 22-block chain at C=1024, P=512 block by block;
+     version at B=256, timed eagerly against bf16 cuDNN and the chain bound,
+     and at B=1 (split-K plans), timed as CUDA graph replays against bf16
+     cuDNN's, and a 22-block chain at C=1024, P=512 block by block;
  19. [sweep] (run before [B2 graphs]): the val-set sweep on 8 synthetic
      images at ResNet-101 bf16, every lane with its launches held: the
      flushes' batched predicts at B = 4 and 12 through B2 against the plain
@@ -125,7 +131,8 @@ kernel against its plain PyTorch version on the card:
  20. [B2 graphs], last: B2 and its bf16 cuDNN yardstick as CUDA graph
      replays at the BO's batches and at the attribution family's 41, 64,
      66 and 250 (each of these also checked block by block against the
-     plain version at B2_TOL), with the chain bound at each batch;
+     plain version at B2_TOL), with their ratio and the chain bound at each
+     batch;
  21. [zoo] (run after [sweep]): every arch the JAX package explains beyond
      the ImageNet ResNets, at published width and depth with seeded random
      weights, each on its own bf16 engine (its eval-mode module, no B2):
@@ -295,6 +302,7 @@ B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
 BO_IMAGES = 8                # bo_window_saliency_multi's N
 BO_BATCHES = (1, 3, 8, 24)   # the BO loops' forwards: single image, and N=8 images
+BO_REPEAT_BATCHES = (1, 3, 8)   # [B2]: eager, eager and replay held bitwise equal (split plans)
 BO_SCORE_TOL = 0.05          # a BO score vs the engine's at another batch (bf16 rounding)
 MULTI_K = 128                # masks per image of the N=8 multi-image window grid
 # Wide-ResNet-50-2's chains (H, C, P, blocks): C = 2P, P = 2 * planes.
@@ -411,9 +419,12 @@ def kernel_ms(fn, reps, prefix, tries=3):
 
 
 def conv_us(x, ws):
-    """Median device microseconds of each of a block's three B2 launches
-    (1x1 reduce, 3x3, 1x1 expand), from the second of two chain calls under
-    torch.profiler (a trace may lose its first kernel)."""
+    """Median device microseconds that each of a block's three B2 launches
+    (1x1 reduce, 3x3, 1x1 expand) adds to the chain, from the second of two
+    chain calls under torch.profiler (a trace may lose its first kernel): a
+    launch's end minus the later of its start and the previous launch's end.
+    (A launch may start before the previous one ends, its blocks prefetching
+    weights and then waiting; its own span would count that wait twice.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -424,10 +435,12 @@ def conv_us(x, ws):
         for _ in range(2):
             bottleneck_chain(x, ws)
         torch.cuda.synchronize()
-    launches = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and "b2_conv" in e.name),
-                      key=lambda e: e.time_range.start)
-    times = [e.device_time for e in launches[-3 * (len(ws) // 6):]]  # 3 per block
+    launches = sorted(((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "b2_conv" in e.name))
+    added = [end - max(start, prev_end) for (start, end), (_, prev_end)
+             in zip(launches[1:], launches)]
+    times = added[-3 * (len(ws) // 6):]  # 3 per block
     return [float(np.median(times[i::3])) for i in range(3)] if times else [0.0] * 3
 
 
@@ -560,6 +573,116 @@ def cudnn_chain(x, ws):
     return run
 
 
+def plan_str(batch, h, c, p):
+    """A block's three launch plans, reduce / 3x3 / expand, each as its N
+    tile x K splits on its grid of blocks."""
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import chain_plan
+
+    return " / ".join(f"{cp.bn}x{cp.splits} on {cp.grid}" for cp in chain_plan(batch, h, h, c, p))
+
+
+def b2_repeatable(x, ws):
+    """Two eager calls and one CUDA graph replay of a chain must be bitwise
+    equal: a split launch sums its K slices' partials in split order,
+    whichever block arrives last, so no arrival order may show."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+
+    a, b = bottleneck_chain(x, ws), bottleneck_chain(x, ws)
+    captured = []
+    graph = graphed(lambda: captured.append(bottleneck_chain(x, ws)))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and torch.equal(a, captured[-1])):
+        raise AssertionError(f"B2 at B={x.shape[0]} H={x.shape[1]}: eager, eager and replayed "
+                             "outputs differ")
+
+
+def b2_phase(rng, smi):
+    """4. B2 against its plain version at the four ResNet-101 stage shapes,
+    every batch of B2_BATCHES (see the module docstring). Returns the totals
+    per forward of MASK_BATCH and the (batch, x, ws) of the BO's batches."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
+        bottleneck_chain,
+        bottleneck_chain_plain,
+    )
+
+    dev = torch.device("cuda")
+    small = {b: [0.0, 0.0, 0.0] for b in BO_BATCHES}  # B2 ms, chain bound, cuDNN per forward
+    small_cases = []   # (batch, x, ws) of the BO's batches, for the graph yardstick at the end
+    b2 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "floor_ms": 0.0, "flops": 0, "bytes": 0,
+          "block_err": 0.0}
+    for batch in B2_BATCHES:
+        for h, c, p, n in STAGES_101:
+            ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
+            if batch > MASK_BATCH:   # host draws of this size would take seconds
+                gen = torch.Generator(device=dev).manual_seed(batch * h)
+                x = torch.randn((batch, h, h, c), generator=gen, device=dev).abs_().to(
+                    torch.bfloat16)
+            else:
+                x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
+                                     ).to(dev, torch.bfloat16)
+            block_err, outside, chain_err = check_chain(x, ws, B2_TOL)
+            b2["block_err"] = max(b2["block_err"], block_err)
+            line = (f"[B2] B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
+                    f"{block_err:.4g} (tol {B2_TOL} x max|plain|; {outside} of "
+                    f"{x.numel() * n} outputs outside elementwise rtol=atol={B2_TOL}), "
+                    f"whole-chain err {chain_err:.4g}")
+            if batch == MASK_BATCH:
+                flops, nbytes, floor = b2_costs(h, c, p, n, batch)
+                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+                ms = time_ms(lambda: bottleneck_chain(x, ws), 10)
+                plain_ms = time_ms(lambda: bottleneck_chain_plain(x, ws), 3)
+                cudnn_ms = time_ms(cudnn_chain(x, ws), 10)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("cudnn_ms", cudnn_ms),
+                               ("floor_ms", floor), ("flops", flops), ("bytes", nbytes)):
+                    b2[key] += v
+                us = conv_us(x, ws)
+                line += (f"; kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+                         f"{bound / ms:.3f} of the chain bound {bound:.4f} ms ({flops:.4g} "
+                         f"flop, {nbytes} bytes), 3-launch floor {floor:.4f} ms; plain (cuDNN "
+                         f"f32) {plain_ms:.4f} ms; yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms; "
+                         f"per block reduce / 3x3 / expand "
+                         + " / ".join(f"{u:.1f}" for u in us) + " us")
+            elif batch in BO_BATCHES:  # the BO loop's forwards
+                flops, nbytes, _ = b2_costs(h, c, p, n, batch)
+                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+                ms = time_ms(lambda: bottleneck_chain(x, ws), 20)
+                cudnn_ms = time_ms(cudnn_chain(x, ws), 20)
+                small[batch] = [v + d for v, d in zip(small[batch], (ms, bound, cudnn_ms))]
+                small_cases.append((batch, x, ws))
+                if batch in BO_REPEAT_BATCHES:
+                    b2_repeatable(x, ws)
+                    line += "; eager, eager and replay bitwise equal"
+                us = conv_us(x, ws)
+                line += (f"; kernel {ms:.4f} ms ({ms / (3 * n) * 1e3:.1f} us per launch), chain "
+                         f"bound {bound:.4f} ms, yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms; "
+                         f"plan reduce / 3x3 / expand (N tile x splits on blocks) "
+                         f"{plan_str(batch, h, c, p)}; per block reduce / 3x3 / expand "
+                         + " / ".join(f"{u:.1f}" for u in us) + " us")
+            log(line)
+            del x, ws
+    log(f"[B2] {smi}: total per forward of {MASK_BATCH}: kernel {b2['ms']:.4f} ms, yardstick "
+        f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
+        + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms, "
+                    f"yardstick bf16 cuDNN {v[2]:.4f} ms (eager)" for b, v in small.items()))
+    f32_cases = [(4, (h, c, p, 2)) for h, c, p, _ in (STAGES_101[0], STAGES_101[3])]
+    f32_cases += [(batch, stage) for batch in B2_F32_BATCHES for stage in STAGES_101]
+    for batch, (h, c, p, n) in f32_cases:
+        ws = b2_weights(rng, c, p, n, torch.float32, dev)
+        x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)).to(dev)
+        block_err, outside, chain_err = check_chain(x, ws, B2_F32_TOL)
+        log(f"[B2] f32 B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
+            f"{block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
+            f"whole-chain err {chain_err:.4g}")
+        del x, ws
+    torch.cuda.synchronize()
+    return b2, small_cases
+
+
 def graphed(fn):
     """``fn`` captured as one CUDA graph (after two warm-up calls on a side
     stream); time its ``replay`` for device time without Python's launch cost."""
@@ -577,6 +700,27 @@ def graphed(fn):
     return graph
 
 
+def union_ms(spans):
+    """Milliseconds covered by the union of (start, end) intervals in
+    microseconds. A B2 launch's interval starts early and overlaps the
+    previous B2 launch's (programmatic dependent launch), so a sum of
+    kernel durations would count its wait twice."""
+    union, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            union += b - max(a, reach)
+            reach = b
+    return union / 1e3
+
+
+def kernel_group(name):
+    """B1, B2 or "other". The kernels' symbols carry their id as a prefix
+    (b2_conv_wgmma, b2_conv_f32, b1_masked_batch), so a rename inside a
+    family cannot move them into "other"."""
+    return ("B2 bottleneck_chain" if "b2_conv" in name else
+            "B1 masked_batch" if "b1_masked_batch" in name else "other")
+
+
 def busy_ms(fn):
     """One call of ``fn`` under torch.profiler: (wall ms to the end of a
     device sync, ms covered by the union of its device intervals)."""
@@ -589,19 +733,15 @@ def busy_ms(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    union, reach = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA):
-        if b > reach:
-            union += b - max(a, reach)
-            reach = b
-    return wall * 1e3, union / 1e3
+    return wall * 1e3, union_ms((e.time_range.start, e.time_range.end) for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def device_breakdown(fn):
     """Runs ``fn`` once under torch.profiler; returns (wall s, device ms by
     group, the six largest "other" kernels) with groups B1, B2 and everything
-    else (cuDNN, elementwise, copies), summed over device-side events only."""
+    else (cuDNN, elementwise, copies): each group the union of its device-side
+    intervals (union_ms), each "other" kernel the sum of its durations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -611,18 +751,16 @@ def device_breakdown(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"B2 bottleneck_chain": 0.0, "B1 masked_batch": 0.0, "other": 0.0}
+    spans = {"B2 bottleneck_chain": [], "B1 masked_batch": [], "other": []}
     others = {}
-    for e in prof.key_averages():
+    for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host ops: their kernels appear as device events of their own
-        # The kernels' symbols carry their id as a prefix (b2_conv_wgmma, b2_conv_f32,
-        # b1_masked_batch), so a rename inside a family cannot move them into "other".
-        group = ("B2 bottleneck_chain" if "b2_conv" in e.key else
-                 "B1 masked_batch" if "b1_masked_batch" in e.key else "other")
-        groups[group] += e.device_time_total / 1e3
+        group = kernel_group(e.name)
+        spans[group].append((e.time_range.start, e.time_range.end))
         if group == "other":
-            others[e.key[:60]] = others.get(e.key[:60], 0.0) + e.device_time_total / 1e3
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + e.device_time / 1e3
+    groups = {group: union_ms(s) for group, s in spans.items()}
     if sum(groups.values()) > 0 and not (groups["B2 bottleneck_chain"] > 0
                                          and groups["B1 masked_batch"] > 0):
         raise AssertionError(f"profile: device time seen, but no B1 or B2 kernel in it: {groups}")
@@ -669,27 +807,19 @@ def replay_trace(graph, tries=3):
             graph.replay()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        spans = []
-        groups = {"B2 bottleneck_chain": 0.0, "B1 masked_batch": 0.0, "other": 0.0}
+        by_group = {"B2 bottleneck_chain": [], "B1 masked_batch": [], "other": []}
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            spans.append((e.time_range.start, e.time_range.end))
-            group = ("B2 bottleneck_chain" if "b2_conv" in e.name else
-                     "B1 masked_batch" if "b1_masked_batch" in e.name else "other")
-            groups[group] += (e.time_range.end - e.time_range.start) / 1e3
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_group[kernel_group(e.name)].append((e.time_range.start, e.time_range.end))
+        groups = {group: union_ms(s) for group, s in by_group.items()}
         if groups["B2 bottleneck_chain"] > 0 and groups["B1 masked_batch"] > 0:
             break
     else:
         raise AssertionError(f"graph replay trace: no B1 or no B2 kernel in {tries} traces: "
                              f"{groups}")
-    union, reach = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > reach:
-            union += b - max(a, reach)
-            reach = b
+    spans = [ab for s in by_group.values() for ab in s]
     span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
-    return wall * 1e3, span, union / 1e3, groups
+    return wall * 1e3, span, union_ms(spans), groups
 
 
 def counted(by_path, path, fn, want_b1, want_b2):
@@ -946,7 +1076,9 @@ def bo_phase(engine, image, segments, target, smi, by_path):
         f"calls 5-8); per call " + ", ".join(f"{v:.1f}" for v in multi_stream))
     log(f"[bo timing] {smi}: one graph replay {replay_events_ms:.3f} ms (CUDA events, no "
         f"profiler); one replay's trace: device span {span:.3f} ms, busy {union:.3f} ms (union "
-        f"of its intervals), busy share {union / span:.4f} (profiled wall {wall:.3f} ms); GP "
+        f"of its intervals), busy share {union / span:.4f} (profiled wall {wall:.3f} ms), B2 "
+        f"{groups['B2 bottleneck_chain']:.3f} ms of it ({n_fwd} forwards), share of the span "
+        f"{groups['B2 bottleneck_chain'] / span:.4f}; GP "
         f"step (stub classifier, graph) "
         f"{gp_per_iter:.4f} ms per iteration (10 iterations {gp_ms[10]:.3f} ms, 5 iterations "
         f"{gp_ms[5]:.3f} ms)")
@@ -1120,10 +1252,8 @@ def resnext_phase(normalized, segments, firsts, width, smi, by_path):
     """ResNeXt and Wide-ResNet at 224 bf16 (see the module docstring, 19)."""
     import torch
 
-    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
     from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
 
-    dev = torch.device("cuda")
     x = masked_images(normalized, segments, firsts, width)
     chunks = NUM_SAMPLES // MASK_BATCH
     parts = []
@@ -1150,9 +1280,24 @@ def resnext_phase(normalized, segments, firsts, width, smi, by_path):
     log(f"[resnext] {smi}: " + "; ".join(parts))
     torch.cuda.empty_cache()
 
-    # Wide-ResNet's chain shapes (C = 2P), block by block and timed at B=256.
+    wide_chains(smi)
+
+
+def wide_chains(smi):
+    """Wide-ResNet's chain shapes (C = 2P): Wide-ResNet-50-2's four block by
+    block at B=256 (timed eagerly against bf16 cuDNN and the chain bound) and
+    at B=1 (split plans; timed as CUDA graph replays, with each launch's
+    plan), and Wide-ResNet-101-2's stage 3, 22 chained blocks at C=1024,
+    P=512, block by block at B=4."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+
+    dev = torch.device("cuda")
     rng = np.random.RandomState(SEED + 2)
+    rng1 = np.random.RandomState(SEED + 3)   # the B=1 inputs: a stream of their own
     total = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
+    small = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
     for h, c, p, n in WIDE_STAGES_50:
         ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
         xb = torch.from_numpy(np.abs(rng.randn(MASK_BATCH, h, h, c)).astype(np.float32)
@@ -1170,7 +1315,21 @@ def resnext_phase(normalized, segments, firsts, width, smi, by_path):
             f"{flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the chain bound {bound:.4f} ms "
             f"({flops:.4g} flop, {nbytes} bytes), 3-launch floor {floor:.4f} ms; yardstick bf16 "
             f"cuDNN chain {cudnn_ms:.4f} ms")
-        del xb, ws
+        x1 = torch.from_numpy(np.abs(rng1.randn(1, h, h, c)).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+        block_err, outside, chain_err = check_chain(x1, ws, B2_TOL)
+        flops, nbytes, _ = b2_costs(h, c, p, n, 1)
+        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        ms = time_ms(graphed(lambda: bottleneck_chain(x1, ws)).replay, 20)
+        cudnn_ms = time_ms(graphed(cudnn_chain(x1, ws)).replay, 20)
+        for key, v in (("kernel", ms), ("cudnn", cudnn_ms), ("bound", bound)):
+            small[key] += v
+        log(f"[resnext] Wide B2 B=1 H={h} C={c} P={p} blocks={n}: worst block err "
+            f"{block_err:.4g} (tol {B2_TOL} x max|plain|; {outside} of {x1.numel() * n} outside "
+            f"elementwise), whole-chain err {chain_err:.4g}; graph replays: kernel {ms:.4f} ms, "
+            f"bf16 cuDNN chain {cudnn_ms:.4f} ms, chain bound {bound:.4f} ms; plan reduce / 3x3 "
+            f"/ expand (N tile x splits on blocks) {plan_str(1, h, c, p)}")
+        del xb, x1, ws
     # Wide-ResNet-101-2's stage 3: 22 chained blocks at C=1024, P=512.
     ws = b2_weights(rng, 1024, 512, 22, torch.bfloat16, dev)
     xb = torch.from_numpy(np.abs(rng.randn(4, 14, 14, 1024)).astype(np.float32)
@@ -1178,7 +1337,9 @@ def resnext_phase(normalized, segments, firsts, width, smi, by_path):
     block_err, _, chain_err = check_chain(xb, ws, B2_TOL)
     log(f"[resnext] {smi}: Wide-ResNet-50-2 chains per forward of {MASK_BATCH}: kernel "
         f"{total['kernel']:.4f} ms, yardstick bf16 cuDNN {total['cudnn']:.4f} ms, chain bound "
-        f"{total['bound']:.4f} ms; Wide-ResNet-101-2 stage 3 (22 blocks) at B=4: worst block "
+        f"{total['bound']:.4f} ms; per forward of 1 as graph replays: kernel "
+        f"{small['kernel']:.4f} ms, bf16 cuDNN {small['cudnn']:.4f} ms, chain bound "
+        f"{small['bound']:.4f} ms; Wide-ResNet-101-2 stage 3 (22 blocks) at B=4: worst block "
         f"err {block_err:.4g}, whole-chain err {chain_err:.4g}")
     torch.cuda.empty_cache()
 
@@ -1599,8 +1760,8 @@ def b2_graph_phase(cases, smi):
         per_batch[batch] = [v + d for v, d in zip(per_batch.get(batch, (0.0,) * 3),
                                                   (b2, cudnn, bound))]
     log(f"[B2 graphs] {smi}: per ResNet-101 forward (4 chains) as CUDA graph replays: "
-        + "; ".join(f"B={b}: kernel {v[0]:.4f} ms, bf16 cuDNN {v[1]:.4f} ms, chain bound "
-                    f"{v[2]:.4f} ms" for b, v in per_batch.items()))
+        + "; ".join(f"B={b}: kernel {v[0]:.4f} ms, bf16 cuDNN {v[1]:.4f} ms (kernel / cuDNN "
+                    f"{v[0] / v[1]:.3f}), chain bound {v[2]:.4f} ms" for b, v in per_batch.items()))
 
 
 def gp_cli_phase(by_path):
@@ -1645,7 +1806,7 @@ def rel_err(got, want):
 
 def b2_device_ms(fn):
     """One call of ``fn`` under torch.profiler: (device ms of b2_ kernels,
-    device ms of all kernels)."""
+    device ms of all kernels), each the union of their intervals (union_ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1653,13 +1814,10 @@ def b2_device_ms(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    b2 = total = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total += e.device_time
-            if "b2_conv" in e.name:
-                b2 += e.device_time
-    return b2 / 1e3, total / 1e3
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (union_ms((a, b) for a, b, name in spans if "b2_conv" in name),
+            union_ms((a, b) for a, b, _ in spans))
 
 
 def calibrated_state_dict(bundle, seeds):
@@ -4078,46 +4236,14 @@ def ptrain_witness() -> int:
     return 0
 
 
-def main() -> int:
+def device_and_build():
+    """1. and 2.: logs the versions and the card, builds csrc/*.cu, holds
+    ptxas to no spills and B2's SASS to HGMMA; returns the card's name and
+    its nvidia-smi name and power limit."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
-        return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
 
-    from network_interpretation_imagenet_tpu_torch.config import (
-        IMAGENET_MEAN,
-        IMAGENET_STD,
-        SegmentConfig,
-    )
-    from network_interpretation_imagenet_tpu_torch.models import create_model
-    from network_interpretation_imagenet_tpu_torch.ops import _cuda_build, masking
-    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
-        bottleneck_chain,
-        bottleneck_chain_plain,
-        chain_plan,
-    )
-    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
-        masked_batch,
-        masked_batch_plain,
-    )
-    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
-        normalize,
-        to_display_uint8,
-    )
-    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
-    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
-        localization_score,
-        random_window_saliency,
-    )
-    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
-
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -4142,6 +4268,65 @@ def main() -> int:
     log(f"[build] bottleneck_chain SASS: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise AssertionError("B2's library holds no HGMMA: its bf16 kernels do not use wgmma")
+    return kind, smi
+
+
+def b2_only() -> int:
+    """``--b2``: only B2's checks and timings (1., 2., 4., Wide-ResNet's
+    chains of 18. and 20.), for comparing two trees of the port on one card
+    in one call. Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, smi = device_and_build()
+    _, small_cases = b2_phase(np.random.RandomState(SEED), smi)
+    wide_chains(smi)
+    b2_graph_phase(small_cases, smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from network_interpretation_imagenet_tpu_torch.config import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        SegmentConfig,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
+        normalize,
+        to_display_uint8,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import (
+        localization_score,
+        random_window_saliency,
+    )
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    kind, smi = device_and_build()
 
     # 3. B1 against its plain version (K = the main path's chunk)
     rng = np.random.RandomState(SEED)
@@ -4192,71 +4377,7 @@ def main() -> int:
         f"{b1_bound_ms / b1_ms:.3f} of bound")
 
     # 4. B2 against its plain version at the four ResNet-101 stage shapes
-    small = {b: [0.0, 0.0, 0.0] for b in BO_BATCHES}  # B2 ms, chain bound, cuDNN per forward
-    small_cases = []   # (batch, x, ws) of the BO's batches, for the graph yardstick at the end
-    b2 = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "floor_ms": 0.0, "flops": 0, "bytes": 0,
-          "block_err": 0.0}
-    for batch in B2_BATCHES:
-        for h, c, p, n in STAGES_101:
-            ws = b2_weights(rng, c, p, n, torch.bfloat16, dev)
-            if batch > MASK_BATCH:   # host draws of this size would take seconds
-                gen = torch.Generator(device=dev).manual_seed(batch * h)
-                x = torch.randn((batch, h, h, c), generator=gen, device=dev).abs_().to(
-                    torch.bfloat16)
-            else:
-                x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)
-                                     ).to(dev, torch.bfloat16)
-            block_err, outside, chain_err = check_chain(x, ws, B2_TOL)
-            b2["block_err"] = max(b2["block_err"], block_err)
-            line = (f"[B2] B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
-                    f"{block_err:.4g} (tol {B2_TOL} x max|plain|; {outside} of "
-                    f"{x.numel() * n} outputs outside elementwise rtol=atol={B2_TOL}), "
-                    f"whole-chain err {chain_err:.4g}")
-            if batch == MASK_BATCH:
-                flops, nbytes, floor = b2_costs(h, c, p, n, batch)
-                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-                ms = time_ms(lambda: bottleneck_chain(x, ws), 10)
-                plain_ms = time_ms(lambda: bottleneck_chain_plain(x, ws), 3)
-                cudnn_ms = time_ms(cudnn_chain(x, ws), 10)
-                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("cudnn_ms", cudnn_ms),
-                               ("floor_ms", floor), ("flops", flops), ("bytes", nbytes)):
-                    b2[key] += v
-                us = conv_us(x, ws)
-                line += (f"; kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
-                         f"{bound / ms:.3f} of the chain bound {bound:.4f} ms ({flops:.4g} "
-                         f"flop, {nbytes} bytes), 3-launch floor {floor:.4f} ms; plain (cuDNN "
-                         f"f32) {plain_ms:.4f} ms; yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms; "
-                         f"per block reduce / 3x3 / expand "
-                         + " / ".join(f"{u:.1f}" for u in us) + " us")
-            elif batch in BO_BATCHES:  # the BO loop's forwards
-                flops, nbytes, _ = b2_costs(h, c, p, n, batch)
-                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-                ms = time_ms(lambda: bottleneck_chain(x, ws), 20)
-                cudnn_ms = time_ms(cudnn_chain(x, ws), 20)
-                small[batch] = [v + d for v, d in zip(small[batch], (ms, bound, cudnn_ms))]
-                small_cases.append((batch, x, ws))
-                grids = [cp.grid for cp in chain_plan(batch, h, h, c, p)]
-                line += (f"; kernel {ms:.4f} ms ({ms / (3 * n) * 1e3:.1f} us per launch), chain "
-                         f"bound {bound:.4f} ms, yardstick bf16 cuDNN chain {cudnn_ms:.4f} ms, "
-                         "blocks per launch reduce / 3x3 / expand "
-                         + " / ".join(map(str, grids)))
-            log(line)
-            del x, ws
-    log(f"[B2] {smi}: total per forward of {MASK_BATCH}: kernel {b2['ms']:.4f} ms, yardstick "
-        f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
-        + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms, "
-                    f"yardstick bf16 cuDNN {v[2]:.4f} ms (eager)" for b, v in small.items()))
-    f32_cases = [(4, (h, c, p, 2)) for h, c, p, _ in (STAGES_101[0], STAGES_101[3])]
-    f32_cases += [(batch, stage) for batch in B2_F32_BATCHES for stage in STAGES_101]
-    for batch, (h, c, p, n) in f32_cases:
-        ws = b2_weights(rng, c, p, n, torch.float32, dev)
-        x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)).to(dev)
-        block_err, outside, chain_err = check_chain(x, ws, B2_F32_TOL)
-        log(f"[B2] f32 B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
-            f"{block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
-            f"whole-chain err {chain_err:.4g}")
-        del x, ws
-    torch.cuda.synchronize()
+    b2, small_cases = b2_phase(rng, smi)
 
     # 5. the main path at full width
     img_u8, gt = synthetic_image(SEED)
@@ -4424,4 +4545,6 @@ if __name__ == "__main__":
         sys.exit(parallel_worker(sys.argv[2:]))
     if sys.argv[1:] == ["--ptrain-witness"]:
         sys.exit(ptrain_witness())
+    if sys.argv[1:] == ["--b2"]:
+        sys.exit(b2_only())
     sys.exit(main())

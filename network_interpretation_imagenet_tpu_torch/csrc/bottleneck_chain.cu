@@ -49,6 +49,27 @@
 // output over its residual input in place: a tile's residual is read, by the
 // same block, before the tile is written. C and P must be multiples of 64.
 //
+// Small batches (the BO path's B = 1 to 24) are bound by the weights' bytes
+// instead: about 76 MB per ResNet-101 forward, 0.023 ms at B=1. The plan of
+// whole 128 x BN tiles above gives a launch min(tiles, 132) blocks, so at B=1
+// stage 3's 3x3 would run on 2 SMs, each walking all 36 K steps of a
+// 128 x 256 tile. A launch whose tiles would leave SMs idle therefore takes the
+// narrowest N tile whose tiles still fit, and where even 64-wide tiles leave
+// SMs idle, each tile's K steps split into contiguous slices over several
+// blocks (split-K; the plan is conv_plan's). A slice that is not its tile's
+// last to arrive leaves its f32 partial tile in a scratch slot and counts
+// itself in the tile's counter. The last adds every slice's partial in slice
+// order, its own from registers, so the sum is the same bits whichever block
+// arrives last; it then runs the epilogue above and zeroes the counter for
+// the next launch. With slices, the residual's TMA load starts once a block
+// knows it is last, so the in-place expand still reads each tile before it
+// writes it. Every launch of a chain after its first starts early under the
+// one before (programmatic dependent launch): its blocks set up and load
+// their first weights while that one finishes, then wait for it before
+// touching any activation, so this fixed cost of a launch, several
+// microseconds, overlaps. (A chain's first launch waits as any kernel does:
+// what ran before it on the stream may still be writing its weights.)
+//
 // f32 (the parity mode): a SIMT FMA implicit GEMM with cp.async tiles, since
 // wgmma has no true-f32 mode.
 
@@ -69,6 +90,7 @@ constexpr int kBM = 128, kBK = 64;  // output rows per block; K per stage (128 B
 constexpr int kTcThreads = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int kSmemMax = 232448;    // what one block may opt in to on the H100
 constexpr int kABytes = kBM * kBK * 2;
+constexpr int kBox = 64 * 128;      // one staged 64 x 64 bf16 output box, 128B-swizzled
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -132,6 +154,126 @@ __device__ __forceinline__ void acc_fence(float (&d)[N]) {  // keep the compiler
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Split-K's handshake between the blocks of one output tile, through a
+// counter in device memory: an acquire load, and an add that both releases
+// this block's partial sums and acquires the others'.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+__device__ __forceinline__ void consumers_sync() {  // the 256 threads of warpgroups 1 and 2
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// Split-K, after a split's main loop: `acc` holds its partial sums of K steps
+// [k0, k1) of the tile; `slots` the tile's S = `splits` partial tiles, one per
+// split, each thread's fragment as BN / 8 float4 256 apart (coalesced). A
+// block that finds another split still running leaves its sums in its slot and
+// returns false. The tile's last block to arrive returns true (and zeroes the
+// counter for the next launch); it then takes split_sum.
+template <int BN>
+__device__ __forceinline__ bool split_arrive(const float (&acc)[BN / 2], float4* slots,
+                                             int* counter, int split, int splits,
+                                             volatile int* flag) {
+  const int t = threadIdx.x - 128;
+  if (t == 0) *flag = ld_acquire(counter) == splits - 1;  // every other split is in
+  consumers_sync();
+  bool last = *flag;
+  if (!last) {
+    float4* mine = slots + split * (kBM * BN / 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      __stcg(mine + j * 256 + t, make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                             acc[4 * j + 3]));
+    __threadfence();
+    consumers_sync();  // every thread's sums are out, and every thread has read *flag
+    if (t == 0) *flag = atomic_add_acq_rel(counter, 1) == splits - 1;
+    consumers_sync();
+    last = *flag;
+  }
+  if (last && t == 0) *counter = 0;
+  return last;
+}
+
+// The last block's sum over the splits, always in split order 0..S-1 with
+// its own sums (still in registers) at its own index, so the f32 result is
+// the same bits whichever block arrived last.
+template <int BN>
+__device__ __forceinline__ void split_sum(float (&acc)[BN / 2], const float4* slots, int split,
+                                          int splits) {
+  constexpr int kChunk = 8;  // float4 per thread in flight per split
+  const int t = threadIdx.x - 128;
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
+    float4 sum[kChunk];
+    for (int s = 0; s < splits; ++s) {
+      const float4* slot = slots + s * (kBM * BN / 4) + j0 * 256 + t;
+#pragma unroll
+      for (int q = 0; q < kChunk; ++q) {
+        const int j = j0 + q;
+        const float4 v = s == split ? make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                                  acc[4 * j + 3])
+                                    : __ldcg(slot + q * 256);
+        if (s == 0) {
+          sum[q] = v;
+        } else {
+          sum[q].x += v.x;
+          sum[q].y += v.y;
+          sum[q].z += v.z;
+          sum[q].w += v.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int j = j0 + q;
+      acc[4 * j] = sum[q].x;
+      acc[4 * j + 1] = sum[q].y;
+      acc[4 * j + 2] = sum[q].z;
+      acc[4 * j + 3] = sum[q].w;
+    }
+  }
+}
+
+// Programmatic dependent launch: the next launch on the stream may start
+// once every block of this one has started, and runs up to its wait, which
+// returns when the previous launch has finished and its writes are visible.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_previous_launch() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// B of one K step (rows kt * 64 .. + 63 of Wt, columns n0 .. n0 + BN - 1) into
+// one ring stage: BN / 64 boxes of 64 x 64.
+template <int BN>
+__device__ __forceinline__ void load_b_stage(uint8_t* dst, const CUtensorMap* bmap, uint64_t* bar,
+                                             int n0, int kt) {
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j) tma_load_2d(dst + j * 8192, bmap, bar, n0 + 64 * j, kt * kBK);
+}
+
+// A consumer warpgroup's leader: waits until its last TMA store has read the
+// staged output boxes, then, with a residual, starts its TMA loads into them
+// (rows m0 .. m0 + 63, columns n0 .. n0 + BN - 1).
+template <int BN>
+__device__ __forceinline__ void stage_residual(uint8_t* boxes, const CUtensorMap* rmap,
+                                               uint64_t* bar, int has_res, int n0, int m0) {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (!has_res) return;
+  mbar_expect_tx(bar, (BN / 64) * kBox);
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j) tma_load_2d(boxes + j * kBox, rmap, bar, n0 + 64 * j, m0);
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle; offsets in 16-byte units.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
@@ -146,33 +288,37 @@ __device__ __forceinline__ void wgmma_k16(float* d, uint64_t da, uint64_t db) {
 }
 
 // out[m, n] = relu(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])),
-// persistent: block b computes the 128 x BN tiles b, b + gridDim.x, ... (N
-// tiles fastest, so the blocks in flight share their A rows in L2). A is the
-// NHWC input through `amap` (2D [M, Cin] for a 1x1, im2col of [B, H, W, Cin]
-// for the 3x3), Wt is [K, Cout] through `bmap`, and the output [M, Cout]
-// leaves through `omap` (TMA stores, which drop the rows past M). With
-// `has_res`, the residual [M, Cout] comes in through `rmap` (TMA loads into
-// the staged output tile, started with the tile); it may alias the
-// output.
+// persistent: block b computes the work items b, b + gridDim.x, ... of the
+// 128 x BN output tiles (N tiles fastest, so the blocks in flight share their
+// A rows in L2), each tile cut into `splits` items along K (a tile's splits
+// adjacent, so they run at once). A is the NHWC input through `amap` (2D
+// [M, Cin] for a 1x1, im2col of [B, H, W, Cin] for the 3x3), Wt is [K, Cout]
+// through `bmap`, and the output [M, Cout] leaves through `omap` (TMA stores,
+// which drop the rows past M). With `has_res`, the residual [M, Cout] comes in
+// through `rmap` (TMA loads into the staged output tile, started with the
+// tile, or with a split tile's fixup); it may alias the output. With
+// `splits` > 1, `part` holds S partial 128 x BN f32 tiles per output tile and
+// `counters` one zeroed int per tile (split_arrive).
 template <int KS, int BN>
 __global__ void __launch_bounds__(kTcThreads, 1)
 b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
               const __grid_constant__ CUtensorMap bmap,
               const __grid_constant__ CUtensorMap omap,
               const __grid_constant__ CUtensorMap rmap, const float* __restrict__ bias,
-              int has_res, int H, int W, int kc, int stages, int n_tiles, int tiles) {
+              int has_res, int H, int W, int kc, int stages, int n_tiles, int tiles,
+              int splits, float* __restrict__ part, int* __restrict__ counters) {
   constexpr int B_BYTES = kBK * BN * 2;
-  constexpr int BOX = 64 * 128;  // one staged 64 x 64 bf16 output box, 128B-swizzled
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* a_ring = smem;
   uint8_t* b_ring = smem + stages * kABytes;
   uint8_t* staged = b_ring + stages * B_BYTES;  // [2 warpgroups][BN / 64 boxes]
-  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * (BN / 64) * BOX);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + 2 * (BN / 64) * kBox);
   uint64_t* empty = full + stages;
   uint64_t* res_full = empty + stages;  // one per consumer warpgroup
-  const int nk = KS * KS * kc;
+  __shared__ int last_flag[2];          // split_arrive's verdict, by item parity
+  const int nk = KS * KS * kc, items = tiles * splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -184,12 +330,26 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  launch_dependents();
 
   if (threadIdx.x < 128) {  // producer warpgroup: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      int s = 0, ph = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      // The weights do not depend on the previous launch: the first item's
+      // first stages of B start before the wait for it, A after.
+      int s = 0, ph = 0, ahead = 0;
+      if (blockIdx.x < items) {
+        const int tile = blockIdx.x / splits, split = blockIdx.x - tile * splits;
+        const int k0 = split * nk / splits;
+        ahead = min(stages, (split + 1) * nk / splits - k0);
+        for (int i = 0; i < ahead; ++i) {
+          mbar_expect_tx(full + i, kABytes + B_BYTES);
+          load_b_stage<BN>(b_ring + i * B_BYTES, &bmap, full + i, (tile % n_tiles) * BN, k0 + i);
+        }
+      }
+      wait_previous_launch();
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int tile = item / splits, split = item - tile * splits;
         const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
         int img = 0, p = 0, q = 0;  // the tile's first output pixel
         if constexpr (KS == 3) {
@@ -197,9 +357,14 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
           p = (m0 / W) % H;
           q = m0 % W;
         }
-        for (int kt = 0; kt < nk; ++kt) {
-          mbar_wait(empty + s, ph ^ 1);
-          mbar_expect_tx(full + s, kABytes + B_BYTES);
+        for (int kt = split * nk / splits; kt < (split + 1) * nk / splits; ++kt) {
+          if (ahead > 0) {
+            --ahead;  // a fresh stage whose B is in flight
+          } else {
+            mbar_wait(empty + s, ph ^ 1);
+            mbar_expect_tx(full + s, kABytes + B_BYTES);
+            load_b_stage<BN>(b_ring + s * B_BYTES, &bmap, full + s, n0, kt);
+          }
           uint8_t* a = a_ring + s * kABytes;
           if constexpr (KS == 1) {
             tma_load_2d(a, &amap, full + s, kt * kBK, m0);
@@ -208,10 +373,6 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
             tma_load_im2col(a, &amap, full + s, (kt - tap * kc) * kBK, q - 1, p - 1, img,
                             tap % 3, tap / 3);
           }
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_load_2d(b_ring + s * B_BYTES + j * 8192, &bmap, full + s, n0 + 64 * j,
-                        kt * kBK);
           if (++s == stages) {
             s = 0;
             ph ^= 1;
@@ -221,30 +382,27 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
     }
   } else {  // consumer warpgroups 1 and 2: rows (wg - 1) * 64 .. + 63 of each tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    wait_previous_launch();  // before the residual, the split scratch and the output
     const int wg = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const bool leader = threadIdx.x % 128 == 0;
     const uint32_t a_base = smem_u32(a_ring) + wg * 64 * 128;
     const uint32_t b_base = smem_u32(b_ring);
-    uint8_t* my_boxes = staged + wg * (BN / 64) * BOX;
-    int s = 0, ph = 0, res_ph = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    uint8_t* my_boxes = staged + wg * (BN / 64) * kBox;
+    int s = 0, ph = 0, res_ph = 0, parity = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, parity ^= 1) {
+      const int tile = item / splits, split = item - tile * splits;
       const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
       // This warpgroup's staging boxes are free once its last TMA store has
       // read them; the residual then streams into them under the main loop.
-      if (leader) {
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        if (has_res) {
-          mbar_expect_tx(res_full + wg, (BN / 64) * BOX);
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_load_2d(my_boxes + j * BOX, &rmap, res_full + wg, n0 + 64 * j, m0 + wg * 64);
-        }
-      }
+      // In a split tile only the last block to arrive reads the residual and
+      // writes the output, so its residual load waits for the handshake.
+      if (leader && splits == 1)
+        stage_residual<BN>(my_boxes, &rmap, res_full + wg, has_res, n0, m0 + wg * 64);
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = split * nk / splits; kt < (split + 1) * nk / splits; ++kt) {
         mbar_wait(full + s, ph);
         acc_fence(acc);
         wgmma_fence();
@@ -269,6 +427,16 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
           ph ^= 1;
         }
       }
+      if constexpr (BN == 64) {  // only 64-wide tiles split (conv_plan)
+        if (splits > 1) {
+          float4* slots = reinterpret_cast<float4*>(part) + tile * splits * (kBM * BN / 4);
+          if (!split_arrive<BN>(acc, slots, counters + tile, split, splits, last_flag + parity))
+            continue;
+          if (leader)
+            stage_residual<BN>(my_boxes, &rmap, res_full + wg, has_res, n0, m0 + wg * 64);
+          split_sum<BN>(acc, slots, split, splits);
+        }
+      }
 
       // Epilogue, while the producer already loads the next tile. Each thread
       // reads the residual where it then writes its output.
@@ -288,7 +456,7 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
           const int r = r0 + 8 * h;
           float v0 = acc[4 * j + 2 * h] + b.x, v1 = acc[4 * j + 2 * h + 1] + b.y;
           // Box j / 8, row r, 16-byte unit (j % 8) ^ (r % 8): the 128B swizzle.
-          uint8_t* dst = my_boxes + (j / 8) * BOX + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
+          uint8_t* dst = my_boxes + (j / 8) * kBox + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
                          (lane % 4) * 4;
           if (has_res) {
             const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dst));
@@ -307,7 +475,7 @@ b2_conv_wgmma(const __grid_constant__ CUtensorMap amap,
           asm volatile(
               "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
                   "l"(reinterpret_cast<uint64_t>(&omap)),
-              "r"(smem_u32(my_boxes + j * BOX)), "r"(n0 + 64 * j), "r"(m0 + wg * 64)
+              "r"(smem_u32(my_boxes + j * kBox)), "r"(n0 + 64 * j), "r"(m0 + wg * 64)
               : "memory");
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
@@ -375,34 +543,58 @@ bool map_im2col(EncodeIm2col enc, CUtensorMap* map, const void* base, int B, int
 
 // One tile plan per convolution, as ops/bottleneck_chain.py:conv_plan gives it.
 struct Plan {
-  int bn, stages, smem, grid;
+  int bn, stages, smem, grid, splits;
+};
+
+// Split-K's scratch, from the wrapper: room for the partial tiles of the
+// chain's largest split launch, and one zeroed counter per tile.
+struct SplitScratch {
+  float* part;
+  int* counters;
 };
 
 template <int KS, int BN>
 int launch_bn(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& omap,
               const CUtensorMap& rmap, const float* bias, int has_res, int H, int W, int Cout,
-              int kc, const Plan& p, int tiles, cudaStream_t s) {
+              int kc, const Plan& p, int tiles, const SplitScratch& scratch, bool pdl,
+              cudaStream_t s) {
   static bool opted_in = false;  // > 48 KB of dynamic shared memory needs the opt-in
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        b2_conv_wgmma<KS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (!opted_in) {  // all of it but the kernel's static bytes (split-K's flags)
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, b2_conv_wgmma<KS, BN>);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(b2_conv_wgmma<KS, BN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax - static_cast<int>(attr.sharedSizeBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  b2_conv_wgmma<KS, BN><<<p.grid, kTcThreads, p.smem, s>>>(
-      amap, bmap, omap, rmap, bias, has_res, H, W, kc, p.stages, Cout / BN, tiles);
-  return 0;
+  cudaLaunchAttribute attr;  // programmatic dependent launch (launch_dependents)
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = pdl;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, b2_conv_wgmma<KS, BN>, amap, bmap, omap, rmap,
+                                             bias, has_res, H, W, kc, p.stages, Cout / BN, tiles,
+                                             p.splits, scratch.part, scratch.counters));
 }
 
 template <int KS>
 int launch(EncodeTiled enc, const CUtensorMap& amap, const void* wt, const void* bias,
            const bf16* res, bf16* out, long long M, int H, int W, int Cin, int Cout,
-           const Plan& p, cudaStream_t s) {
+           const Plan& p, const SplitScratch& sc, bool pdl, cudaStream_t s) {
   const long long need = 1024 + 256LL * p.bn + static_cast<long long>(p.stages) *
                                                    (kABytes + 128 * p.bn) + (2 * p.stages + 2) * 8;
   const long long tiles = (M + kBM - 1) / kBM * (Cout / (p.bn > 0 ? p.bn : 1));
   if ((p.bn != 64 && p.bn != 128 && p.bn != 256) || Cout % p.bn || Cin % kBK ||
-      p.stages < 2 || p.smem < need || p.smem > kSmemMax || p.grid < 1 || p.grid > tiles)
+      p.stages < 2 || p.smem < need || p.smem > kSmemMax || p.splits < 1 ||
+      p.splits > KS * KS * (Cin / kBK) || p.grid < 1 || p.grid > tiles * p.splits ||
+      (p.splits > 1 && (p.bn != 64 || sc.part == nullptr || sc.counters == nullptr)))
     return kErrPlan;
   CUtensorMap bmap, omap, rmap;
   if (!map_2d(enc, &bmap, wt, static_cast<long long>(KS) * KS * Cin, Cout, kBK) ||
@@ -411,13 +603,16 @@ int launch(EncodeTiled enc, const CUtensorMap& amap, const void* wt, const void*
     return kErrEncode;
   const float* b = static_cast<const float*>(bias);
   const int r = res != nullptr, kc = Cin / kBK, t = static_cast<int>(tiles);
-  if (p.bn == 64) return launch_bn<KS, 64>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
-  if (p.bn == 128) return launch_bn<KS, 128>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
-  return launch_bn<KS, 256>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, s);
+  if (p.bn == 64)
+    return launch_bn<KS, 64>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, sc, pdl, s);
+  if (p.bn == 128)
+    return launch_bn<KS, 128>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, sc, pdl, s);
+  return launch_bn<KS, 256>(amap, bmap, omap, rmap, b, r, H, W, Cout, kc, p, t, sc, pdl, s);
 }
 
 int chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* w, int n_blocks,
-               int B, int H, int W, int C, int P, const int* plan, void* stream) {
+               int B, int H, int W, int C, int P, const int* plan, void* part, void* counters,
+               void* stream) {
   static EncodeTiled tiled = nullptr;
   static EncodeIm2col im2col = nullptr;
   if (tiled == nullptr || im2col == nullptr) {
@@ -427,9 +622,10 @@ int chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* 
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(B) * H * W;
-  const Plan reduce{plan[0], plan[1], plan[2], plan[3]};
-  const Plan spatial{plan[4], plan[5], plan[6], plan[7]};
-  const Plan expand{plan[8], plan[9], plan[10], plan[11]};
+  const Plan reduce{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const Plan spatial{plan[5], plan[6], plan[7], plan[8], plan[9]};
+  const Plan expand{plan[10], plan[11], plan[12], plan[13], plan[14]};
+  const SplitScratch sc{static_cast<float*>(part), static_cast<int*>(counters)};
   const bf16* in = static_cast<const bf16*>(x);
   bf16* y = static_cast<bf16*>(out);
   bf16* a = static_cast<bf16*>(t1);
@@ -439,13 +635,13 @@ int chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* 
     CUtensorMap am;
     int rc = 0;
     if (!map_2d(tiled, &am, in, M, C, kBM)) return kErrEncode;
-    rc = launch<1>(tiled, am, wb[0], wb[1], nullptr, a, M, H, W, C, P, reduce, s);
+    rc = launch<1>(tiled, am, wb[0], wb[1], nullptr, a, M, H, W, C, P, reduce, sc, i > 0, s);
     if (rc) return rc;
     if (!map_im2col(im2col, &am, a, B, H, W, P)) return kErrEncode;
-    rc = launch<3>(tiled, am, wb[2], wb[3], nullptr, b, M, H, W, P, P, spatial, s);
+    rc = launch<3>(tiled, am, wb[2], wb[3], nullptr, b, M, H, W, P, P, spatial, sc, true, s);
     if (rc) return rc;
     if (!map_2d(tiled, &am, b, M, P, kBM)) return kErrEncode;
-    rc = launch<1>(tiled, am, wb[4], wb[5], in, y, M, H, W, P, C, expand, s);
+    rc = launch<1>(tiled, am, wb[4], wb[5], in, y, M, H, W, P, C, expand, sc, true, s);
     if (rc) return rc;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -653,15 +849,17 @@ extern "C" {
 
 // x, out: [B, H, W, C] NHWC; t1, t2: [B, H, W, P] scratch; w: host array of
 // 6*n_blocks device pointers per block (w1 [C, P], b1 f32 [P], w3 [3, 3, P, P],
-// b3 f32 [P], w2 [P, C], b2 f32 [C]); plan: 12 host ints, (N tile, stages,
-// dynamic shared-memory bytes, grid) for the reduce, 3x3 and expand
-// convolutions. C and P are multiples of 64. Returns cudaGetLastError(), or
-// -1 (no driver entry point for tensor maps), -2 (a tensor map was refused)
-// or -3 (a plan the kernel cannot run).
+// b3 f32 [P], w2 [P, C], b2 f32 [C]); plan: 15 host ints, (N tile, stages,
+// dynamic shared-memory bytes, grid, K splits) for the reduce, 3x3 and expand
+// convolutions; part: f32 scratch for the partial tiles of the largest split
+// launch, counters: one zeroed int32 per tile of it (both may be null when
+// no launch splits K). C and P are multiples of 64. Returns
+// cudaGetLastError(), or -1 (no driver entry point for tensor maps), -2 (a
+// tensor map was refused) or -3 (a plan the kernel cannot run).
 int bottleneck_chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* w,
                           int n_blocks, int B, int H, int W, int C, int P, const int* plan,
-                          void* stream) {
-  return chain_bf16(x, out, t1, t2, w, n_blocks, B, H, W, C, P, plan, stream);
+                          void* part, void* counters, void* stream) {
+  return chain_bf16(x, out, t1, t2, w, n_blocks, B, H, W, C, P, plan, part, counters, stream);
 }
 
 int bottleneck_chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w,

@@ -5,8 +5,9 @@ Counterpart of the TPU kernel ``ops/pallas_bottleneck.py:105``
 ``csrc/bottleneck_chain.cu`` (three implicit-GEMM launches per block) for
 CUDA tensors and takes :func:`bottleneck_chain_plain` only for CPU tensors.
 The bf16 kernel (``wgmma`` fed by TMA) runs the tile plan that
-:func:`conv_plan` derives from each convolution's shape; on the card it takes
-C and P that are multiples of 64 (:func:`check_cuda_shapes`).
+:func:`conv_plan` derives from each convolution's shape, splitting K where
+the output tiles alone would leave SMs idle; on the card it takes C and P
+that are multiples of 64 (:func:`check_cuda_shapes`).
 
 Weights come as the JAX package lays them out, six per block, BatchNorm
 already folded (``models.common.fold_bn``): ``w1 [C, P]``, ``b1 [P]``,
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
 
 _SIG_F32 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_SIG_BF16 = _SIG_F32[:-1] + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+_SIG_BF16 = _SIG_F32[:-1] + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 3
 _ENTRY = {torch.bfloat16: "bottleneck_chain_bf16", torch.float32: "bottleneck_chain_f32"}
 _SIGS = {_ENTRY[torch.bfloat16]: _SIG_BF16, _ENTRY[torch.float32]: _SIG_F32}
 
@@ -36,13 +37,21 @@ MAX_STAGES = 8
 SMEM_PER_BLOCK = 232_448   # the most dynamic shared memory a Hopper block may opt in to
 _SMEM_ALIGN = 1024         # slack for aligning the ring to the 128B swizzle's 1024-byte atom
 H100_SMS = 132
+# The fewest K steps (of TILE_K) a split of a tile keeps. Each split beyond
+# the first costs the tile's last block one more 128 x 64 f32 partial tile
+# (32 KB) to read back, and the launch one more block's start; at
+# ResNet-101's batches 1, 3 and 8, 12 measured faster on the H100 than 4, 6,
+# 8 and 16 (PERF.md).
+MIN_SPLIT_K = 12
 
 
 class ConvPlan(NamedTuple):
     """Tile plan of one bf16 convolution launch: the N tile, the depth of
     the shared-memory ring, the dynamic shared memory it takes, the output
-    tiles (``m_tiles * n_tiles``, N tiles fastest) and the persistent grid
-    that walks them, one block per SM at most."""
+    tiles (``m_tiles * n_tiles``, N tiles fastest), the persistent grid that
+    walks them, one block per SM at most, and the K splits of each tile (its
+    K steps of TILE_K in contiguous, near-equal slices, slice s taking steps
+    [s * K / splits, (s + 1) * K / splits) as the kernel rounds them)."""
 
     bn: int
     stages: int
@@ -50,6 +59,7 @@ class ConvPlan(NamedTuple):
     m_tiles: int
     n_tiles: int
     grid: int
+    splits: int
 
     @property
     def tiles(self) -> int:
@@ -64,10 +74,20 @@ def conv_plan(m: int, cin: int, cout: int, ks: int, sms: int = H100_SMS) -> Conv
     leaves room for (measured on the H100, PERF.md); beside the output tile
     staged for its TMA stores (256 * N bytes: two warpgroups' 64 rows), as
     many stages of A (128 x 64) and B (64 x N) tiles as fit, up to 8; and
-    ``min(tiles, sms)`` persistent blocks."""
+    ``min(tiles, sms)`` persistent blocks.
+
+    Where those tiles would leave SMs idle (small batches), the N tile is
+    the narrowest whose tiles still fit on ``sms`` blocks, and where even
+    64-wide tiles leave SMs idle, each tile's K steps split into the most
+    slices that fit beside the other tiles while each keeps MIN_SPLIT_K
+    steps, one block per slice. Only 64-wide tiles ever split: a narrower
+    tile is more tiles before any split and the smallest partial sums."""
     check_cuda_shapes(cin, cout)
     widest = 128 if ks == 1 and cin >= 256 else 256
     bn = next(n for n in (256, 128, 64) if cout % n == 0 and n <= widest)
+    m_tiles = -(-m // TILE_M)
+    if m_tiles * (cout // bn) < sms:
+        bn = next(n for n in (64, 128, 256) if cout % n == 0 and m_tiles * (cout // n) <= sms)
     stage = (TILE_M * TILE_K + TILE_K * bn) * 2
     staged = TILE_M * bn * 2
 
@@ -75,8 +95,10 @@ def conv_plan(m: int, cin: int, cout: int, ks: int, sms: int = H100_SMS) -> Conv
         return _SMEM_ALIGN + staged + stages * stage + (2 * stages + 2) * 8
 
     stages = max(s for s in range(1, MAX_STAGES + 1) if smem(s) <= SMEM_PER_BLOCK)
-    m_tiles, n_tiles = -(-m // TILE_M), cout // bn
-    return ConvPlan(bn, stages, smem(stages), m_tiles, n_tiles, min(m_tiles * n_tiles, sms))
+    n_tiles = cout // bn
+    tiles, k_steps = m_tiles * n_tiles, ks * ks * cin // TILE_K
+    splits = max(1, min(sms // tiles, k_steps // MIN_SPLIT_K))
+    return ConvPlan(bn, stages, smem(stages), m_tiles, n_tiles, min(tiles * splits, sms), splits)
 
 
 def chain_plan(b: int, h: int, w: int, c: int, p: int, sms: int = H100_SMS) -> tuple:
@@ -84,6 +106,16 @@ def chain_plan(b: int, h: int, w: int, c: int, p: int, sms: int = H100_SMS) -> t
     and 1x1 expand (P -> C)."""
     m = b * h * w
     return conv_plan(m, c, p, 1, sms), conv_plan(m, p, p, 3, sms), conv_plan(m, p, c, 1, sms)
+
+
+def split_scratch(plans: Sequence[ConvPlan]) -> tuple:
+    """(f32 elements, int32 counters) of the split-K scratch that a chain
+    with these launch plans needs: every split's partial 128 x N tile, and
+    one counter per output tile, of its largest split launch; (0, 0) when no
+    launch splits."""
+    split = [cp for cp in plans if cp.splits > 1]
+    return (max((cp.tiles * cp.splits * TILE_M * cp.bn for cp in split), default=0),
+            max((cp.tiles for cp in split), default=0))
 
 
 def check_cuda_shapes(c: int, p: int) -> None:
@@ -156,9 +188,17 @@ def bottleneck_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.
             ptrs, len(weights) // 6, b, h, w, c, p]
     if x.dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        plan = [v for cp in chain_plan(b, h, w, c, p, sms)
-                for v in (cp.bn, cp.stages, cp.smem, cp.grid)]
-        args.append((ctypes.c_int * len(plan))(*plan))
+        plans = chain_plan(b, h, w, c, p, sms)
+        flat = [v for cp in plans for v in (cp.bn, cp.stages, cp.smem, cp.grid, cp.splits)]
+        # One scratch per call, shared by its launches, which run in stream order;
+        # every fixup leaves its counter at 0 again.
+        n_part, n_counters = split_scratch(plans)
+        part = torch.empty(n_part, dtype=torch.float32, device=x.device) if n_part else None
+        counters = (torch.zeros(n_counters, dtype=torch.int32, device=x.device)
+                    if n_counters else None)
+        args += [(ctypes.c_int * len(flat))(*flat),
+                 _cuda_build.ptr(part) if part is not None else None,
+                 _cuda_build.ptr(counters) if counters is not None else None]
     lib = _cuda_build.library("bottleneck_chain", _SIGS)
     rc = getattr(lib, _ENTRY[x.dtype])(*args, _cuda_build.stream_ptr(x.device))
     _cuda_build.check(rc, "bottleneck_chain")

@@ -97,11 +97,12 @@ def _stage_shapes():
             for arch, sizes in _CONFIGS.items() for s in range(len(sizes))]
 
 
-@pytest.mark.parametrize("batch", [1, 3, 32, 256])
+@pytest.mark.parametrize("batch", [1, 3, 8, 24, 32, 256])
 @pytest.mark.parametrize("arch,h,c,p", _stage_shapes())
 def test_chain_plan_fits_and_covers(arch, h, c, p, batch):
     m = batch * h * h
-    for plan, (cin, cout) in zip(jbc.chain_plan(batch, h, h, c, p), [(c, p), (p, p), (p, c)]):
+    plans = jbc.chain_plan(batch, h, h, c, p)
+    for plan, (cin, cout, ks) in zip(plans, [(c, p, 1), (p, p, 3), (p, c, 1)]):
         assert plan.smem <= jbc.SMEM_PER_BLOCK == 232_448
         assert plan.bn in (64, 128, 256) and cout % plan.bn == 0
         assert plan.stages >= 3
@@ -109,9 +110,69 @@ def test_chain_plan_fits_and_covers(arch, h, c, p, batch):
         assert plan.smem >= ring + jbc.TILE_M * plan.bn * 2 + 1024  # ring + staged output
         assert plan.m_tiles * jbc.TILE_M >= m > (plan.m_tiles - 1) * jbc.TILE_M
         assert plan.n_tiles * plan.bn == cout
-        assert 1 <= plan.grid <= min(plan.tiles, jbc.H100_SMS)
-        assert plan.grid == jbc.H100_SMS or plan.grid == plan.tiles  # no SM left idle
         assert cin % jbc.TILE_K == 0
+        k_steps = ks * ks * cin // jbc.TILE_K
+        # No SM left idle that a split could fill: one block per K slice of each
+        # tile, up to one per SM.
+        assert 1 <= plan.grid <= jbc.H100_SMS
+        assert plan.grid == min(plan.tiles * plan.splits, jbc.H100_SMS)
+        # The slices (the kernel's [s * K / splits, (s + 1) * K / splits))
+        # partition the K steps into contiguous, non-empty ranges, each of at
+        # least MIN_SPLIT_K steps once K splits.
+        ranges = [(s * k_steps // plan.splits, (s + 1) * k_steps // plan.splits)
+                  for s in range(plan.splits)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == k_steps
+        assert all(k1 == k0_next for (_, k1), (k0_next, _) in zip(ranges, ranges[1:]))
+        assert all(k1 > k0 for k0, k1 in ranges)
+        if plan.splits > 1:
+            assert plan.bn == 64 and plan.tiles * plan.splits <= jbc.H100_SMS
+            assert all(k1 - k0 >= jbc.MIN_SPLIT_K for k0, k1 in ranges)
+        # The most slices the card and MIN_SPLIT_K allow.
+        more = plan.splits + 1
+        assert plan.tiles * more > jbc.H100_SMS or k_steps // more < jbc.MIN_SPLIT_K
+    # The scratch the wrapper allocates holds the largest split launch's
+    # partial tiles and one counter per tile of it.
+    n_part, n_counters = jbc.split_scratch(plans)
+    for plan in plans:
+        if plan.splits > 1:
+            assert n_part >= plan.tiles * plan.splits * jbc.TILE_M * plan.bn
+            assert n_counters >= plan.tiles
+    if all(cp.splits == 1 for cp in plans):
+        assert (n_part, n_counters) == (0, 0)
+
+
+def _whole_tile_plan(m, cin, cout, ks):
+    """(bn, stages, smem, m_tiles, n_tiles, grid) of a launch that walks whole
+    output tiles: the plan every launch ran before K could split, written out
+    independently of conv_plan."""
+    bn = next(n for n in (256, 128, 64)
+              if cout % n == 0 and n <= (128 if ks == 1 and cin >= 256 else 256))
+    stages = next(s for s in range(8, 0, -1)
+                  if 1024 + 256 * bn + s * (128 + bn) * 128 + (2 * s + 2) * 8 <= 232_448)
+    smem = 1024 + 256 * bn + stages * (128 + bn) * 128 + (2 * stages + 2) * 8
+    m_tiles, n_tiles = -(-m // 128), cout // bn
+    return bn, stages, smem, m_tiles, n_tiles, min(m_tiles * n_tiles, 132)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 24, 41, 64, 66, 100, 250, 256, 512, 1024])
+@pytest.mark.parametrize("h,c,p", [(56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512),
+                                   (56, 256, 128), (28, 512, 256), (14, 1024, 512),
+                                   (7, 2048, 1024)])
+def test_chain_plan_keeps_plans_that_fill_the_card(h, c, p, batch):
+    """ResNet's and Wide-ResNet's chain shapes: every launch whose whole tiles
+    fill the 132 SMs (all of B=256) keeps its plan field for field and never
+    splits; the others run no fewer blocks than before."""
+    m = batch * h * h
+    for plan, (cin, cout, ks) in zip(jbc.chain_plan(batch, h, h, c, p),
+                                     [(c, p, 1), (p, p, 3), (p, c, 1)]):
+        whole = _whole_tile_plan(m, cin, cout, ks)
+        if whole[3] * whole[4] >= jbc.H100_SMS:
+            assert tuple(plan[:6]) == whole and plan.splits == 1
+        else:
+            assert plan.grid >= whole[5] and plan.bn <= whole[0]
+    if batch == 256:
+        assert all(cp.splits == 1 and cp.grid == jbc.H100_SMS
+                   for cp in jbc.chain_plan(batch, h, h, c, p))
 
 
 @pytest.mark.parametrize("c,p,ok", [(256, 64, True), (2048, 512, True), (192, 128, True),
