@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ptrain-witness   # only the f32 parting witness (see 27)
     python3 chip_smoke.py --b2                # only B2's checks and timings (see b2_only)
+    python3 chip_smoke.py --b1                # only B1's checks and timings (see b1_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -19,10 +20,17 @@ kernel against its plain PyTorch version on the card:
      and of 64 with the table of starts full), and into an out= slice of a
      larger buffer; and at
      the new archs' shapes, 28x28x1 (MNIST: the generic C=1 instance),
-     32x32x3 (CIFAR) and 299x299x3 (Inception-v3: H*W*C not a multiple of
-     8, so scalar loads at row ends and scalar stores), each at K = 256
-     (the engine's chunk), 1,000 and 1,024, with device time, plain time
-     and bytes bound at 1,024;
+     32x32x3 (CIFAR) and 299x299x3 (Inception-v3: H*W*C odd, so rows start
+     at every residue mod 16 bytes), each at K = 256 (the engine's chunk),
+     1,000 and 1,024; at all four shapes, into out= slices big[j:j+K] of a
+     NaN-filled buffer for j = 0..7 and K = 1, 3, 7, 256, 1,000 and 1,024,
+     the rest of the buffer left untouched; at the new archs' shapes from
+     an image that is one of a stacked pair (at 299x299x3 its base off
+     16-byte alignment); device time, plain time and bytes bound at
+     224x224x3 K=256 bf16 and K = 256 and 32 f32 (aligned rows), at the new
+     shapes at K = 1,024 bf16, and at 299x299x3 at K = 256 and 1,024 in
+     bf16 and f32; the SASS of every b1_masked_batch
+     instance must hold 128-bit global stores (STG.E.128);
   4. B2 bottleneck_chain vs its plain version at all four ResNet-101 stage
      shapes with the real block counts, block by block within bf16
      tolerance, at B = 1 and 3 (the single-image BO loop's), 8 and 24 (the
@@ -257,6 +265,9 @@ kernel against its plain PyTorch version on the card:
      (1, 2)), at B=PTRAIN_TP_BATCH, each held to the f64 step as the
      world-1 step is, with each rank's parameter and slot bytes. Every
      rank's handoff launches sum under the path "parallel train".
+     ``--b1`` runs 1., 2. and 3. alone and then [B1 zoo]: Inception-v3's
+     1,024 window masks and knockouts (evals/s as [zoo]) and B1's device
+     time in one 1,024-mask window call.
      ``--ptrain-witness`` runs PTRAIN_ARGV in this process at lr 0.01 and
      0.001 from the seeded init, from it written as a weights artifact,
      and from two copies with every weight moved one ulp (random signs,
@@ -350,6 +361,10 @@ ATTR_LM_TOL = 1e-3
 # chunk (the [zoo] window path's launches), the generators' default and 1,024.
 B1_SHAPES = ((28, 28, 1), (32, 32, 3), (299, 299, 3))
 B1_KS = (MASK_BATCH, 1000, 1024)
+# B1 into out= slices big[j:j+K], j = 0..B1_SLICE_OFFSETS - 1: every residue
+# of a row's address mod 16 bytes (8 in bf16, 4 in f32).
+B1_SLICE_OFFSETS = 8
+B1_SLICE_KS = (1, 3, 7, MASK_BATCH, 1000, 1024)
 # [zoo]: (arch, dataset, create_model kwargs) at published width and depth.
 ZOO = (("mnist_cnn", "mnist", {}), ("resnet", "cifar10+", {"depth": 56}),
        ("densenet", "cifar10+", {"depth": 100}), ("vgg16_bn", "imagenet", {}),
@@ -494,9 +509,9 @@ def b2_costs(h, c, p, n, batch):
     return flops, nbytes, floor
 
 
-def sass_hgmma(so_path):
-    """Counts the HGMMA (wgmma) instructions in a built library's SASS, with
-    the CUDA toolkit's cuobjdump or the copy Triton ships."""
+def sass_text(so_path):
+    """A built library's SASS, from the CUDA toolkit's cuobjdump or the copy
+    Triton ships."""
     import glob
     import os
     import shutil
@@ -513,9 +528,29 @@ def sass_hgmma(so_path):
     tool = next((t for t in tools if t and os.path.isfile(t)), None)
     if tool is None:
         raise RuntimeError("no cuobjdump found for the SASS check")
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def sass_hgmma(so_path):
+    """Counts the HGMMA (wgmma) instructions in a built library's SASS."""
+    return sum("HGMMA" in line for line in sass_text(so_path).splitlines())
+
+
+def sass_b1_stores(so_path):
+    """{kernel symbol: [128-bit global stores, narrower global stores]} for
+    every b1_masked_batch instance in a built library's SASS."""
+    counts, fn = {}, None
+    for line in sass_text(so_path).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "b1_masked_batch" in fn:
+                counts[fn] = [0, 0]
+        elif fn in counts:
+            op = next((t for t in line.split() if t.startswith("STG")), None)
+            if op is not None:
+                counts[fn][0 if op.split(".")[-1] == "128" else 1] += 1
+    return counts
 
 
 def check_chain(x, ws, tol):
@@ -2199,13 +2234,69 @@ def slic_phase(display, smi):
         f"pass {seg:.3f} ms (p50)")
 
 
+def b1_slices(image, seg, s, width, dt):
+    """B1 into out= slices big[j:j+K] of one NaN-filled buffer, for j = 0 ..
+    B1_SLICE_OFFSETS - 1 (every residue of the rows' addresses) and K in
+    B1_SLICE_KS: each slice bit for bit against the plain version, the rest
+    of the buffer untouched."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+
+    big = torch.empty((B1_SLICE_OFFSETS - 1 + max(B1_SLICE_KS), *image.shape), dtype=dt,
+                      device=image.device)
+    for k in B1_SLICE_KS:
+        firsts = torch.from_numpy(masking.sample_window_starts_host(SEED + k, k, s, width)).to(
+            image.device)
+        want = masked_batch_plain(image, seg, firsts, width, dt)
+        for j in range(B1_SLICE_OFFSETS):
+            big.fill_(float("nan"))
+            masked_batch(image, seg, firsts, width, dt, out=big[j:j + k])
+            if not (torch.equal(big[j:j + k], want) and torch.isnan(big[:j]).all()
+                    and torch.isnan(big[j + k:]).all()):
+                raise AssertionError(f"B1 {dt} {tuple(image.shape)} K={k}: the out= slice at "
+                                     f"mask {j} differs from the plain version, or the buffer "
+                                     "around it was written")
+    del big
+
+
+def b1_time(image, seg, firsts, width, dt, smi, label):
+    """B1's device time, its plain version's time and its bytes bound on
+    one input, logged; returns the record for the kernels line."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+
+    h, w, c = image.shape
+    k = firsts.numel()
+    ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, dt), 50, "b1_masked_batch")
+    plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width, dt), 20)
+    nbytes = k * h * w * c * dt.itemsize + h * w * (c * 4 + 4) + k * 4
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    name = "bf16" if dt == torch.bfloat16 else "f32"
+    log(f"[B1] {smi}: {h}x{w}x{c} {label}, K={k} {name}: kernel {ms:.5f} ms (device time), "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes), {bound / ms:.3f} "
+        "of bound")
+    return {"shape": [h, w, c], "k": k, "dtype": name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes"}
+
+
 def b1_shapes(smi):
     """B1 at the new archs' image shapes (see the module docstring, 3): each
     against its plain version bit for bit, bf16 and f32, at K = 256 (the
     engine's chunk, which [zoo]'s window paths launch), 1,000 (the
-    generators' default, not a multiple of any group) and 1,024; device
-    time, plain time and the bytes bound at K = 1,024 bf16. Returns one
-    record per shape for the kernels line."""
+    generators' default, not a multiple of any group) and 1,024, into out=
+    slices at every residue, and from an image off 16-byte alignment;
+    device time, plain time and the bytes bound at K = 1,024 bf16, and at
+    299x299x3 (rows off alignment) at K = 256 and 1,024 in both dtypes.
+    Returns one record per timing for the kernels line."""
     import torch
 
     from network_interpretation_imagenet_tpu_torch.ops import masking
@@ -2225,26 +2316,124 @@ def b1_shapes(smi):
         width = max(1, int(0.4 * s))
         image = torch.from_numpy(rng.randn(h, w, c).astype(np.float32)).to(dev)
         seg = torch.from_numpy(seg_np).to(dev)
+        # The second image of a stacked pair: at 299x299x3 its base is 12
+        # bytes past a 16-byte boundary, as images_t[1] of a multi-image call.
+        pair = torch.stack([image, image])
+        firsts = {k: torch.from_numpy(masking.sample_window_starts_host(SEED, k, s, width)).to(dev)
+                  for k in B1_KS}
         for k in B1_KS:
-            firsts = torch.from_numpy(masking.sample_window_starts_host(SEED, k, s, width)).to(dev)
             for dt in (torch.float32, torch.bfloat16):
-                if not torch.equal(masked_batch(image, seg, firsts, width, dt),
-                                   masked_batch_plain(image, seg, firsts, width, dt)):
+                want = masked_batch_plain(image, seg, firsts[k], width, dt)
+                if not (torch.equal(masked_batch(image, seg, firsts[k], width, dt), want)
+                        and torch.equal(masked_batch(pair[1], seg, firsts[k], width, dt), want)):
                     raise AssertionError(f"B1 {dt} {h}x{w}x{c} K={k}: kernel differs from its "
                                          "plain version")
-        ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 20,
-                       "b1_masked_batch")
-        plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
-                                                      torch.bfloat16), 20)
-        nbytes = k * h * w * c * 2 + h * w * (c * 4 + 4) + k * 4
-        bound = nbytes / H100_BYTES_PER_S * 1e3
-        records.append({"shape": [h, w, c], "k": k, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": "bytes"})
+        for dt in (torch.float32, torch.bfloat16):
+            b1_slices(image, seg, s, width, dt)
         log(f"[B1] {smi}: {h}x{w}x{c} S={s}, K = {' and '.join(map(str, B1_KS))}: bit-exact "
-            f"bf16+f32; at K={k} bf16 kernel {ms:.4f} ms (device time), plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({nbytes} bytes), {bound / ms:.3f} of bound")
-        del image, seg, firsts
+            f"bf16+f32, also from an image at {pair[1].data_ptr() % 16} bytes past a 16-byte "
+            f"boundary; out= slices at masks 0-{B1_SLICE_OFFSETS - 1}, K = "
+            f"{', '.join(map(str, B1_SLICE_KS))}: bit-exact, the buffer around untouched")
+        timed = ([(k, dt) for k in (MASK_BATCH, 1024) for dt in (torch.bfloat16, torch.float32)]
+                 if h * w * c % 8 else [(1024, torch.bfloat16)])
+        records += [b1_time(image, seg, firsts[k], width, dt, smi, f"S={s}") for k, dt in timed]
+        del image, seg, firsts, pair
+        torch.cuda.empty_cache()
     return records
+
+
+def b1_phase(rng, smi):
+    """3.: B1 against its plain version at the main path's 224x224x3 (K =
+    256, the BO loop's 1 and 3 with the width on the device, [serve]'s
+    buckets, out= slices) and at b1_shapes'; then its timings, at 224x224x3
+    K=256 in bf16 (the main path's) and in f32 at K = 256 and 32 ([serve]'s
+    f32 artifact, the generators). Returns (ms, plain ms, bound ms) at
+    224x224x3 K=256 bf16 and the records of every other timing."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
+        masked_batch,
+        masked_batch_plain,
+    )
+
+    dev = torch.device("cuda")
+    hh, ww = np.mgrid[0:224, 0:224]
+    seg_np = ((hh // 16) * 14 + ww // 16).astype(np.int32)  # 196 segments
+    s = int(seg_np.max()) + 1
+    width = int(0.4 * s)
+    firsts_np = masking.sample_window_starts_host(SEED, MASK_BATCH, s, width)
+    firsts_np[-1] = s - 3  # this window runs past the last segment
+    image = torch.from_numpy(rng.randn(224, 224, 3).astype(np.float32)).to(dev)
+    seg = torch.from_numpy(seg_np).to(dev)
+    firsts = torch.from_numpy(firsts_np).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        got = masked_batch(image, seg, firsts, width, dt)
+        want = masked_batch_plain(image, seg, firsts, width, dt)
+        if not torch.equal(got, want):
+            raise AssertionError(f"B1 {dt}: kernel differs from its plain version")
+        # The BO loop's batches: K = 1 and 3 with the width read on the device,
+        # and one image's slice of a larger buffer.
+        width_dev = torch.tensor([width], dtype=torch.int32, device=dev)
+        for k in (1, 3):
+            if not torch.equal(masked_batch(image, seg, firsts[-k:], width_dev, dt),
+                               masked_batch_plain(image, seg, firsts[-k:], width, dt)):
+                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
+        # [serve]'s buckets: K = 32 (target inference, the f32 artifact) and
+        # 1,024 (/eval_windows), whose launch plans (groups of 4, and of 64 with
+        # the table of starts full) no other K at this shape gives.
+        for k in SERVE_B1_KS:
+            fk = torch.from_numpy(masking.sample_window_starts_host(SEED + k, k, s, width)).to(dev)
+            if not torch.equal(masked_batch(image, seg, fk, width, dt),
+                               masked_batch_plain(image, seg, fk, width, dt)):
+                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
+        buf = torch.zeros((6, 224, 224, 3), dtype=dt, device=dev)
+        masked_batch(image, seg, firsts[:3], width_dev, dt, out=buf[3:])
+        if not torch.equal(buf[3:], want[:3]) or buf[:3].any():
+            raise AssertionError(f"B1 {dt}: out= slice differs from the default")
+        b1_slices(image, seg, s, width, dt)
+    by_shape = b1_shapes(smi)
+    ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50,
+                   "b1_masked_batch")
+    plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width, torch.bfloat16), 50)
+    nbytes = MASK_BATCH * 224 * 224 * 3 * 2 + 224 * 224 * (3 * 4 + 4) + MASK_BATCH * 4
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"[B1] {smi}: K={MASK_BATCH}, 1 and 3 (width on the device), "
+        f"{' and '.join(map(str, SERVE_B1_KS))} ([serve]'s buckets), out= slices at masks "
+        f"0-{B1_SLICE_OFFSETS - 1}, 224x224x3 S={s}: bit-exact bf16+f32; K={MASK_BATCH} bf16 "
+        f"kernel {ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes} bytes), {bound_ms / ms:.3f} of bound")
+    for k in (MASK_BATCH, 32):
+        by_shape.append(b1_time(image, seg, firsts[:k], width, torch.float32, smi, f"S={s}"))
+    return ms, plain_ms, bound_ms, by_shape
+
+
+def b1_zoo(smi):
+    """[B1 zoo] (``--b1``): Inception-v3 (299x299x3, bf16, seeded random
+    weights) as [zoo] runs it: evals/s of 1,024 window masks (B1's 4
+    launches of K=256) and of 1,024 knockouts (no B1), and B1's device time
+    in one 1,024-mask window call."""
+    import torch
+
+    arch, dataset, kw = ZOO[-1]
+    z = zoo_setup(arch, dataset, kw)
+    chunks = -(-NUM_SAMPLES // MASK_BATCH)
+
+    def window():
+        return z.engine.eval_window_masks(z.normalized, z.segments, z.firsts, z.width, z.target)
+
+    b1_call = chunks * kernel_ms(window, chunks, "b1_masked_batch")
+    win = zoo_rate(window)
+    kor = zoo_rate(lambda: z.engine.eval_knockout_masks(z.normalized, z.segments, z.knock,
+                                                         z.target))
+    log(f"[B1 zoo] {smi}: {arch} ({dataset}, {z.bundle.input_size}x{z.bundle.input_size}x"
+        f"{z.bundle.input_channels}, S={z.s}): B1 in one {NUM_SAMPLES}-mask window call "
+        f"{b1_call:.4f} ms ({chunks} launches, device time); {NUM_SAMPLES} window masks "
+        f"{win['p50']:.1f} evals/s (range {win['min']:.1f}-{win['max']:.1f} over {win['calls']} "
+        f"calls), {NUM_SAMPLES} knockouts M=1 {kor['p50']:.1f} evals/s (range {kor['min']:.1f}-"
+        f"{kor['max']:.1f} over {kor['calls']} calls)")
+    del z
+    torch.cuda.empty_cache()
 
 
 def zoo_image(dataset, size):
@@ -2267,55 +2456,70 @@ def zoo_image(dataset, size):
     return normalized, (display[:, :, 0] if spec.channels == 1 else display)
 
 
+def zoo_setup(arch, dataset, kw):
+    """One [zoo] arch at full width and depth, seeded random weights, on its
+    own bf16 engine: a namespace of the bundle, its weights, the normalized
+    synthetic image, its Felzenszwalb segments, S, the window width,
+    NUM_SAMPLES window starts and knockout ids, the engine and the image's
+    target."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.cli.common import segment_config
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    bundle = create_model(arch, dataset, dtype=torch.bfloat16, **kw)
+    sd = bundle.init(SEED)
+    normalized, display = zoo_image(dataset, bundle.input_size)
+    args = types.SimpleNamespace(dataset=dataset, segmenter="felzenszwalb", scale=None,
+                                 sigma=0.5, min_size=None, n_segments=48)
+    segments = segment_image(display, segment_config(args))
+    s = int(segments.max()) + 1
+    width = max(1, int(0.4 * s))
+    engine = SaliencyEngine(bundle, sd, mask_batch=MASK_BATCH, device="cuda")
+    return types.SimpleNamespace(
+        bundle=bundle, sd=sd, normalized=normalized, segments=segments, s=s,
+        width=width, firsts=masking.sample_window_starts_host(SEED, NUM_SAMPLES, s, width),
+        knock=masking.sample_knockout_ids_host(SEED, NUM_SAMPLES, 1, s), engine=engine,
+        target=engine.predict_one(normalized)[0])
+
+
 def zoo_phase(smi, by_path):
     """Every new arch at full width and depth (see the module docstring, 21)."""
     import torch
 
-    from network_interpretation_imagenet_tpu_torch.cli.common import segment_config
-    from network_interpretation_imagenet_tpu_torch.models import ModulePlan, create_model
-    from network_interpretation_imagenet_tpu_torch.ops import masking
+    from network_interpretation_imagenet_tpu_torch.models import ModulePlan
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
         masked_batch,
         masked_batch_plain,
     )
-    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
-    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
 
     dev = torch.device("cuda")
     chunks = -(-NUM_SAMPLES // MASK_BATCH)
     rates = {}
     for arch, dataset, kw in ZOO:
         t_arch = time.perf_counter()
-        bundle = create_model(arch, dataset, dtype=torch.bfloat16, **kw)
-        sd = bundle.init(SEED)
-        normalized, display = zoo_image(dataset, bundle.input_size)
-        args = types.SimpleNamespace(dataset=dataset, segmenter="felzenszwalb", scale=None,
-                                     sigma=0.5, min_size=None, n_segments=48)
-        segments = segment_image(display, segment_config(args))
-        s = int(segments.max()) + 1
-        width = max(1, int(0.4 * s))
-        firsts = masking.sample_window_starts_host(SEED, NUM_SAMPLES, s, width)
-        knock = masking.sample_knockout_ids_host(SEED, NUM_SAMPLES, 1, s)
-        engine = SaliencyEngine(bundle, sd, mask_batch=MASK_BATCH, device="cuda")
-        target = engine.predict_one(normalized)[0]
+        z = zoo_setup(arch, dataset, kw)
         # B1 at every chunk the window path below gives it, on this arch's own
         # segments and starts: bit for bit against its plain version.
-        image_t, seg_t = (torch.from_numpy(normalized).to(dev),
-                          torch.from_numpy(segments).to(dev))
-        firsts_t = torch.from_numpy(firsts).to(dev)
+        image_t, seg_t = (torch.from_numpy(z.normalized).to(dev),
+                          torch.from_numpy(z.segments).to(dev))
+        firsts_t = torch.from_numpy(z.firsts).to(dev)
         for off in range(0, NUM_SAMPLES, MASK_BATCH):
             part = firsts_t[off:off + MASK_BATCH]
-            if not torch.equal(masked_batch(image_t, seg_t, part, width, engine.compute_dtype),
-                               masked_batch_plain(image_t, seg_t, part, width,
-                                                  engine.compute_dtype)):
+            dt = z.engine.compute_dtype
+            if not torch.equal(masked_batch(image_t, seg_t, part, z.width, dt),
+                               masked_batch_plain(image_t, seg_t, part, z.width, dt)):
                 raise AssertionError(f"[zoo] {arch}: B1 chunk at {off} differs from its plain "
                                      "version")
         # The engine's bf16 plan against the plain module in f32, 32 masked images.
-        x = masked_batch_plain(image_t, seg_t, firsts_t[:32], width, torch.float32)
-        f32 = ModulePlan(bundle.module, sd, torch.float32, dev)
+        x = masked_batch_plain(image_t, seg_t, firsts_t[:32], z.width, torch.float32)
+        f32 = ModulePlan(z.bundle.module, z.sd, torch.float32, dev)
         with torch.inference_mode():
-            got, want = engine.model(x.to(torch.bfloat16)), f32(x)
-            cpu = ModulePlan(bundle.module, sd, torch.float32, "cpu")(x[:8].cpu())
+            got, want = z.engine.model(x.to(torch.bfloat16)), f32(x)
+            cpu = ModulePlan(z.bundle.module, z.sd, torch.float32, "cpu")(x[:8].cpu())
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         err32 = (want[:8].cpu() - cpu).abs().max().item()
@@ -2325,20 +2529,21 @@ def zoo_phase(smi, by_path):
             raise AssertionError(f"[zoo] {arch}: bf16 plan vs f32 module err {err} (max |logit| "
                                  f"{scale}), f32 card vs CPU err {err32}")
         del f32, cpu, x, image_t, seg_t, firsts_t
-        res = counted(by_path, f"zoo_{arch}_window", lambda: engine.eval_window_masks(
-            normalized, segments, firsts, width, target), chunks, 0)
-        ko = counted(by_path, f"zoo_{arch}_knockout", lambda: engine.eval_knockout_masks(
-            normalized, segments, knock, target), 0, 0)
+        res = counted(by_path, f"zoo_{arch}_window", lambda: z.engine.eval_window_masks(
+            z.normalized, z.segments, z.firsts, z.width, z.target), chunks, 0)
+        ko = counted(by_path, f"zoo_{arch}_knockout", lambda: z.engine.eval_knockout_masks(
+            z.normalized, z.segments, z.knock, z.target), 0, 0)
         if not (np.isfinite(res.prob_target).all() and np.isfinite(ko.prob_target).all()):
             raise AssertionError(f"[zoo] {arch}: non-finite outcomes")
 
-        win = zoo_rate(lambda: engine.eval_window_masks(normalized, segments, firsts, width,
-                                                        target))
-        kor = zoo_rate(lambda: engine.eval_knockout_masks(normalized, segments, knock, target))
+        win = zoo_rate(lambda: z.engine.eval_window_masks(z.normalized, z.segments, z.firsts,
+                                                          z.width, z.target))
+        kor = zoo_rate(lambda: z.engine.eval_knockout_masks(z.normalized, z.segments, z.knock,
+                                                            z.target))
         rates[arch] = {"window": win, "knockout": kor}
-        h = bundle.input_size
-        log(f"[zoo] {smi}: {arch} ({dataset}, {h}x{h}x{bundle.input_channels}, S={s}, "
-            f"target {target}): bf16 plan vs plain f32 module, 32 masked images, max logit err "
+        h = z.bundle.input_size
+        log(f"[zoo] {smi}: {arch} ({dataset}, {h}x{h}x{z.bundle.input_channels}, S={z.s}, "
+            f"target {z.target}): bf16 plan vs plain f32 module, 32 masked images, max logit err "
             f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}), argmax agreement "
             f"{agree:.3f}; B1 bit-exact at its {chunks} chunks; f32 card vs CPU, 8 images, "
             f"{err32:.3g}; {NUM_SAMPLES} window masks {win['p50']:.1f} evals/s (range "
@@ -2348,7 +2553,7 @@ def zoo_phase(smi, by_path):
             f"{int(ko.survived.sum())}), mask_batch {MASK_BATCH}; launches window {json.dumps(by_path[f'zoo_{arch}_window'])}, "
             f"knockout {json.dumps(by_path[f'zoo_{arch}_knockout'])}; "
             f"{time.perf_counter() - t_arch:.1f} s")
-        del engine, bundle, sd
+        del z
         torch.cuda.empty_cache()
     log(f"[zoo] {smi}: evals/s (median, range, calls) " + json.dumps(rates))
 
@@ -4268,6 +4473,11 @@ def device_and_build():
     log(f"[build] bottleneck_chain SASS: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise AssertionError("B2's library holds no HGMMA: its bf16 kernels do not use wgmma")
+    stores = sass_b1_stores(_cuda_build.so_path("masked_batch"))
+    log(f"[build] masked_batch SASS: {len(stores)} b1_masked_batch instances, global stores "
+        "[128-bit, narrower] " + json.dumps(sorted(stores.values())))
+    if not stores or any(wide == 0 for wide, _ in stores.values()):
+        raise AssertionError(f"B1's library: an instance without 128-bit global stores {stores}")
     return kind, smi
 
 
@@ -4291,6 +4501,25 @@ def b2_only() -> int:
     return 0
 
 
+def b1_only() -> int:
+    """``--b1``: only B1's checks and timings (1., 2., 3.) and [B1 zoo], for
+    comparing two trees of the port on one card in one call. Prints no
+    result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, smi = device_and_build()
+    b1_phase(np.random.RandomState(SEED), smi)
+    b1_zoo(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4306,12 +4535,8 @@ def main() -> int:
         SegmentConfig,
     )
     from network_interpretation_imagenet_tpu_torch.models import create_model
-    from network_interpretation_imagenet_tpu_torch.ops import masking
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
-    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
-        masked_batch,
-        masked_batch_plain,
-    )
+    from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
     from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
         normalize,
         to_display_uint8,
@@ -4328,53 +4553,9 @@ def main() -> int:
 
     kind, smi = device_and_build()
 
-    # 3. B1 against its plain version (K = the main path's chunk)
+    # 3. B1 against its plain version
     rng = np.random.RandomState(SEED)
-    hh, ww = np.mgrid[0:224, 0:224]
-    seg_np = ((hh // 16) * 14 + ww // 16).astype(np.int32)  # 196 segments
-    s = int(seg_np.max()) + 1
-    width = int(0.4 * s)
-    firsts_np = masking.sample_window_starts_host(SEED, MASK_BATCH, s, width)
-    firsts_np[-1] = s - 3  # this window runs past the last segment
-    image = torch.from_numpy(rng.randn(224, 224, 3).astype(np.float32)).to(dev)
-    seg = torch.from_numpy(seg_np).to(dev)
-    firsts = torch.from_numpy(firsts_np).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
-        got = masked_batch(image, seg, firsts, width, dt)
-        want = masked_batch_plain(image, seg, firsts, width, dt)
-        if not torch.equal(got, want):
-            raise AssertionError(f"B1 {dt}: kernel differs from its plain version")
-        # The BO loop's batches: K = 1 and 3 with the width read on the device,
-        # and one image's slice of a larger buffer.
-        width_dev = torch.tensor([width], dtype=torch.int32, device=dev)
-        for k in (1, 3):
-            if not torch.equal(masked_batch(image, seg, firsts[-k:], width_dev, dt),
-                               masked_batch_plain(image, seg, firsts[-k:], width, dt)):
-                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
-        # [serve]'s buckets: K = 32 (target inference, the f32 artifact) and
-        # 1,024 (/eval_windows), whose launch plans (groups of 4, and of 64 with
-        # the table of starts full) no other K at this shape gives.
-        for k in SERVE_B1_KS:
-            fk = torch.from_numpy(masking.sample_window_starts_host(SEED + k, k, s, width)).to(dev)
-            if not torch.equal(masked_batch(image, seg, fk, width, dt),
-                               masked_batch_plain(image, seg, fk, width, dt)):
-                raise AssertionError(f"B1 {dt} K={k}: kernel differs from its plain version")
-        buf = torch.zeros((6, 224, 224, 3), dtype=dt, device=dev)
-        masked_batch(image, seg, firsts[:3], width_dev, dt, out=buf[3:])
-        if not torch.equal(buf[3:], want[:3]) or buf[:3].any():
-            raise AssertionError(f"B1 {dt}: out= slice differs from the default")
-    b1_by_shape = b1_shapes(smi)
-    b1_ms = kernel_ms(lambda: masked_batch(image, seg, firsts, width, torch.bfloat16), 50,
-                      "b1_masked_batch")
-    b1_plain_ms = time_ms(lambda: masked_batch_plain(image, seg, firsts, width,
-                                                     torch.bfloat16), 50)
-    b1_bytes = MASK_BATCH * 224 * 224 * 3 * 2 + 224 * 224 * (3 * 4 + 4) + MASK_BATCH * 4
-    b1_bound_ms = b1_bytes / H100_BYTES_PER_S * 1e3
-    log(f"[B1] K={MASK_BATCH}, 1 and 3 (width on the device), "
-        f"{' and '.join(map(str, SERVE_B1_KS))} ([serve]'s buckets), and an out= slice, 224x224x3 "
-        f"S={s}: bit-exact bf16+f32; kernel {b1_ms:.4f} ms (device time), "
-        f"plain {b1_plain_ms:.4f} ms, bound {b1_bound_ms:.4f} ms ({b1_bytes} bytes), "
-        f"{b1_bound_ms / b1_ms:.3f} of bound")
+    b1_ms, b1_plain_ms, b1_bound_ms, b1_by_shape = b1_phase(rng, smi)
 
     # 4. B2 against its plain version at the four ResNet-101 stage shapes
     b2, small_cases = b2_phase(rng, smi)
@@ -4547,4 +4728,6 @@ if __name__ == "__main__":
         sys.exit(ptrain_witness())
     if sys.argv[1:] == ["--b2"]:
         sys.exit(b2_only())
+    if sys.argv[1:] == ["--b1"]:
+        sys.exit(b1_only())
     sys.exit(main())
