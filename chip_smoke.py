@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ptrain-witness   # only the f32 parting witness (see 27)
-    python3 chip_smoke.py --b2                # only B2's checks and timings (see b2_only)
+    python3 chip_smoke.py --b2                # only B2's checks and timings, both instances (b2_only)
     python3 chip_smoke.py --b1                # only B1's checks and timings (see b1_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
@@ -38,17 +38,23 @@ kernel against its plain PyTorch version on the card:
      predict or a BO iteration, the BO pre-samples) and 100 (the window
      CLIs' default chunk), 1024 ([serve]'s /eval_windows bucket), and 2, 6
      and 512 ([parallel]'s: a rank's BO forwards and its half of 1,024
-     masks); f32 at
+     masks); f32 (B2's f32 instance, within B2_F32_TOL) at
      B = 1, 2, 32 ([serve]'s f32 artifact) and 256 (the f32 sweep's
-     predicts and chunk) at all four shapes and at B=4 at two; per stage at B=256 its
+     predicts and chunk), 3, 8 and 24 (the f32 BO loops') at all four
+     shapes and at B=4 at two; per stage at B=256 its
      time, TFLOP/s, share of its bound, the floor of three launches per
      block and a bf16 cuDNN yardstick; at the BO's batches the same
      yardstick eager, each launch's plan (N tile, K splits, blocks) and the
      microseconds each of a block's three launches adds, and at B = 1, 3
      and 8 (split-K plans) two eager calls and a CUDA graph replay of every
-     chain held bitwise equal; and (last of all, [B2 graphs]) with the kernel
-     as CUDA graph replays; the built library's SASS must hold HGMMA (wgmma)
-     instructions;
+     chain held bitwise equal; the f32 instance per stage at B2_F32_TIMED
+     as CUDA graph replays and at B=256 eagerly: ms, TFLOP/s, share of the
+     f32 bound (H100_F32_FLOPS), the cuDNN f32 yardstick (TF32 off), each
+     launch's plan and microseconds, and every f32 chain whose plan splits
+     K held bitwise equal (eager, eager, replay); and (last of all, [B2
+     graphs]) with the kernel as CUDA graph replays; the built library's
+     SASS must hold HGMMA (wgmma) instructions, and its b2_conv_f32
+     instances FFMAs and no tensor-core instruction (no TF32);
   5. the random-window path: Felzenszwalb -> predict_one ->
      random_window_saliency (1024 masks) -> localization_score, with the
      launch counters reset just before and read just after, then
@@ -257,7 +263,9 @@ kernel against its plain PyTorch version on the card:
      images/s; the two-rank model_best in a bf16 engine on both ranks,
      1,024 windows through sharded_window_eval against the unsharded engine
      (PARALLEL_AGREE, PARALLEL_PROB_TOL; B1 bit-exact on the rank's masks,
-     B2 block by block within B2_TOL at B = 512 and 1); a run cut mid-epoch
+     B2 block by block within B2_TOL at B = 512 and 1; on rank 0, an f32
+     engine of the same model_best holds B2's f32 instance block by block
+     within B2_F32_TOL at B = 512 and 1); a run cut mid-epoch
      and resumed on both ranks under torch.use_deterministic_algorithms
      (global B=PTRAIN_RESUME_BATCH, 4 steps, a save every 2) equal to the
      uninterrupted one bit for bit; and one step on the data axis (mesh
@@ -295,6 +303,7 @@ MASK_BATCH = 256
 NUM_SAMPLES = 1024
 SEED = 0
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM (NVIDIA data sheet)
+H100_F32_FLOPS = 67e12       # float32 on the CUDA cores, outside the tensor cores, SXM (data sheet)
 H100_BYTES_PER_S = 3.35e12   # HBM3 (NVIDIA data sheet)
 STAGES_101 = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 22), (7, 2048, 512, 2))
 SWEEP_BATCH = 4              # the [sweep] phase's image_batch for the flushed lanes
@@ -307,8 +316,12 @@ B2_BATCHES = (1, 2, 3, SWEEP_BATCH, 6, 8, 3 * SWEEP_BATCH, 24, 32, CLI_MASKS, MA
               1024)          # [serve]'s /eval_windows bucket
 # ([parallel]'s BO: a rank's 2 images of a flush of 4 give 2 x 3 pre-samples
 # and 2 x 1 per iteration; its proposals, q = 2 over 2 ranks, 1 and 3 -> 4 / 2.)
-# The f32 sweep lane's: predicts at 1 and 2, its chunk; [serve]'s f32 artifact's bucket, 32.
-B2_F32_BATCHES = (1, 2, 32, MASK_BATCH)
+# The f32 sweep lane's: predicts at 1 and 2, its chunk; [serve]'s f32 artifact's bucket, 32;
+# the f32 BO loops' (--dtype float32): 1 and 3, and 8 and 24 at N=8.
+B2_F32_BATCHES = (1, 2, 3, 8, 24, 32, MASK_BATCH)
+# [B2]'s f32 timings: per stage as CUDA graph replays at the BO's batches and
+# [serve]'s f32 bucket, eagerly at MASK_BATCH.
+B2_F32_TIMED = (1, 3, 8, 24, 32)
 B2_TOL = 2e-2                # bf16: rtol = atol; one bf16 ulp is 2^-8 relative
 B2_F32_TOL = 1e-4            # f32 instance: summation order only
 BO_IMAGES = 8                # bo_window_saliency_multi's N
@@ -492,21 +505,31 @@ def b2_weights(rng, c, p, n, dtype, device):
     return ws
 
 
-def b2_costs(h, c, p, n, batch):
-    """(operations, bytes, floor ms) of one chain call. The bytes count x read
-    and y written once, and the weights and biases once per block (the chain
-    bound). The floor charges each of a block's three convolutions
-    max(operations / peak, its own bytes / bandwidth): the least time of a
-    design that keeps three launches per block, with t1 and t2 in device
-    memory."""
+def b2_costs(h, c, p, n, batch, f32=False):
+    """(operations, bytes, floor ms) of one chain call in bf16 (``f32``:
+    the f32 instance, 4-byte activations and weights, the CUDA cores' rate).
+    The bytes count x read and y written once, and the weights and biases
+    once per block (the chain bound). The floor charges each of a block's
+    three convolutions max(operations / peak, its own bytes / bandwidth):
+    the least time of a design that keeps three launches per block, with t1
+    and t2 in device memory."""
     m = batch * h * h
+    e, rate = (4, H100_F32_FLOPS) if f32 else (2, H100_BF16_FLOPS)
     flops = (4 * c * p + 18 * p * p) * m * n   # reduce 2mcp + 3x3 18mp^2 + expand 2mpc
-    nbytes = 2 * m * c * 2 + n * ((2 * c * p + 9 * p * p) * 2 + (2 * p + c) * 4)
-    convs = ((2 * m * c * p, (m * c + m * p + c * p) * 2 + 4 * p),                # 1x1 reduce
-             (18 * m * p * p, (2 * m * p + 9 * p * p) * 2 + 4 * p),                # 3x3
-             (2 * m * p * c, (m * p + 2 * m * c + p * c) * 2 + 4 * c))             # 1x1 expand
-    floor = n * sum(max(f / H100_BF16_FLOPS, b / H100_BYTES_PER_S) for f, b in convs) * 1e3
+    nbytes = 2 * m * c * e + n * ((2 * c * p + 9 * p * p) * e + (2 * p + c) * 4)
+    convs = ((2 * m * c * p, (m * c + m * p + c * p) * e + 4 * p),                # 1x1 reduce
+             (18 * m * p * p, (2 * m * p + 9 * p * p) * e + 4 * p),                # 3x3
+             (2 * m * p * c, (m * p + 2 * m * c + p * c) * e + 4 * c))             # 1x1 expand
+    floor = n * sum(max(f / rate, b / H100_BYTES_PER_S) for f, b in convs) * 1e3
     return flops, nbytes, floor
+
+
+def chain_bound(flops, nbytes, f32=False):
+    """The chain bound in ms: the larger of the operations over the card's
+    peak (bf16 tensor cores, or f32 on the CUDA cores) and the bytes over
+    HBM's rate."""
+    return max(flops / (H100_F32_FLOPS if f32 else H100_BF16_FLOPS),
+               nbytes / H100_BYTES_PER_S) * 1e3
 
 
 def sass_text(so_path):
@@ -550,6 +573,29 @@ def sass_b1_stores(so_path):
             op = next((t for t in line.split() if t.startswith("STG")), None)
             if op is not None:
                 counts[fn][0 if op.split(".")[-1] == "128" else 1] += 1
+    return counts
+
+
+def sass_f32_ops(so_path):
+    """{kernel symbol: {"FFMA": n, "LDS.128": n, "MMA": n}} for every
+    b2_conv_f32 instance in a built library's SASS: its FMAs, its 16-byte
+    shared loads, and any tensor-core instruction (HMMA, HGMMA: TF32 in any
+    form would be one)."""
+    counts, fn = {}, None
+    for line in sass_text(so_path).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "b2_conv_f32" in fn:
+                counts[fn] = {"FFMA": 0, "LDS.128": 0, "MMA": 0}
+        elif fn in counts:
+            op = next((t for t in line.split() if t.isupper() and t[:1].isalpha()
+                       and not t.startswith("R")), "")
+            if op == "FFMA":
+                counts[fn]["FFMA"] += 1
+            elif op.startswith("LDS") and op.endswith(".128"):
+                counts[fn]["LDS.128"] += 1
+            elif op.split(".")[0].endswith("MMA"):   # HMMA, HGMMA, IMMA, ...
+                counts[fn]["MMA"] += 1
     return counts
 
 
@@ -608,12 +654,16 @@ def cudnn_chain(x, ws):
     return run
 
 
-def plan_str(batch, h, c, p):
+def plan_str(batch, h, c, p, dtype=None):
     """A block's three launch plans, reduce / 3x3 / expand, each as its N
-    tile x K splits on its grid of blocks."""
+    tile x K splits on its grid of blocks (``dtype``: the instance's, bf16
+    by default)."""
+    import torch
+
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import chain_plan
 
-    return " / ".join(f"{cp.bn}x{cp.splits} on {cp.grid}" for cp in chain_plan(batch, h, h, c, p))
+    plans = chain_plan(batch, h, h, c, p, dtype=dtype or torch.bfloat16)
+    return " / ".join(f"{cp.bn}x{cp.splits} on {cp.grid}" for cp in plans)
 
 
 def b2_repeatable(x, ws):
@@ -668,7 +718,7 @@ def b2_phase(rng, smi):
                     f"whole-chain err {chain_err:.4g}")
             if batch == MASK_BATCH:
                 flops, nbytes, floor = b2_costs(h, c, p, n, batch)
-                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+                bound = chain_bound(flops, nbytes)
                 ms = time_ms(lambda: bottleneck_chain(x, ws), 10)
                 plain_ms = time_ms(lambda: bottleneck_chain_plain(x, ws), 3)
                 cudnn_ms = time_ms(cudnn_chain(x, ws), 10)
@@ -684,7 +734,7 @@ def b2_phase(rng, smi):
                          + " / ".join(f"{u:.1f}" for u in us) + " us")
             elif batch in BO_BATCHES:  # the BO loop's forwards
                 flops, nbytes, _ = b2_costs(h, c, p, n, batch)
-                bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+                bound = chain_bound(flops, nbytes)
                 ms = time_ms(lambda: bottleneck_chain(x, ws), 20)
                 cudnn_ms = time_ms(cudnn_chain(x, ws), 20)
                 small[batch] = [v + d for v, d in zip(small[batch], (ms, bound, cudnn_ms))]
@@ -704,18 +754,81 @@ def b2_phase(rng, smi):
         f"bf16 cuDNN {b2['cudnn_ms']:.4f} ms, 3-launch floor {b2['floor_ms']:.4f} ms; "
         + "; ".join(f"per forward of {b}: kernel {v[0]:.4f} ms, chain bound {v[1]:.4f} ms, "
                     f"yardstick bf16 cuDNN {v[2]:.4f} ms (eager)" for b, v in small.items()))
-    f32_cases = [(4, (h, c, p, 2)) for h, c, p, _ in (STAGES_101[0], STAGES_101[3])]
-    f32_cases += [(batch, stage) for batch in B2_F32_BATCHES for stage in STAGES_101]
-    for batch, (h, c, p, n) in f32_cases:
+    b2["f32_block_err"], b2["f32"] = b2_f32_phase(rng, smi)
+    torch.cuda.synchronize()
+    return b2, small_cases
+
+
+def b2_f32_phase(rng, smi):
+    """4, B2's f32 instance: every ResNet-101 chain shape block by block
+    within B2_F32_TOL at every batch of B2_F32_BATCHES (and at B=4 at two
+    shapes); every chain whose plan splits K held bitwise equal over two
+    eager calls and a graph replay; per stage at B2_F32_TIMED as CUDA graph
+    replays, and at MASK_BATCH eagerly with the plain version's time: kernel
+    ms, TFLOP/s, share of the f32 chain bound (67 TFLOP/s on the CUDA cores),
+    the yardstick cuDNN f32 chain (TF32 off), each launch's plan and the
+    microseconds each launch adds. Returns the worst block error and the
+    timed records by shape."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
+        bottleneck_chain,
+        bottleneck_chain_plain,
+        chain_plan,
+    )
+
+    dev = torch.device("cuda")
+    cases = [(4, (h, c, p, 2)) for h, c, p, _ in (STAGES_101[0], STAGES_101[3])]
+    cases += [(batch, stage) for batch in B2_F32_BATCHES for stage in STAGES_101]
+    worst, records, per_batch = 0.0, [], {}
+    for batch, (h, c, p, n) in cases:
         ws = b2_weights(rng, c, p, n, torch.float32, dev)
         x = torch.from_numpy(np.abs(rng.randn(batch, h, h, c)).astype(np.float32)).to(dev)
         block_err, outside, chain_err = check_chain(x, ws, B2_F32_TOL)
-        log(f"[B2] f32 B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
-            f"{block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
-            f"whole-chain err {chain_err:.4g}")
+        worst = max(worst, block_err)
+        line = (f"[B2] f32 B={batch} H={h} C={c} P={p} blocks={n}: worst block err "
+                f"{block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside elementwise), "
+                f"whole-chain err {chain_err:.4g}")
+        if any(cp.splits > 1 for cp in chain_plan(batch, h, h, c, p, dtype=torch.float32)):
+            b2_repeatable(x, ws)
+            line += "; eager, eager and replay bitwise equal"
+        if batch == MASK_BATCH or batch in B2_F32_TIMED:
+            flops, nbytes, floor = b2_costs(h, c, p, n, batch, f32=True)
+            bound = chain_bound(flops, nbytes, f32=True)
+            rec = {"dtype": "float32", "batch": batch, "H": h, "C": c, "P": p, "blocks": n,
+                   "bound_ms": bound, "bound_by": "operations" if flops / H100_F32_FLOPS
+                   >= nbytes / H100_BYTES_PER_S else "bytes", "flops": flops, "bytes": nbytes}
+            if batch == MASK_BATCH:
+                rec.update(timing="eager", ms=time_ms(lambda: bottleneck_chain(x, ws), 5),
+                           library_ms=time_ms(cudnn_chain(x, ws), 5),
+                           plain_ms=time_ms(lambda: bottleneck_chain_plain(x, ws), 3))
+            else:
+                rec.update(timing="graph replay",
+                           ms=time_ms(graphed(lambda: bottleneck_chain(x, ws)).replay, 20),
+                           library_ms=time_ms(graphed(cudnn_chain(x, ws)).replay, 20))
+            records.append(rec)
+            total = per_batch.setdefault(batch, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                                                 "flops": 0, "timing": rec["timing"]})
+            for key in ("ms", "library_ms", "bound_ms", "flops"):
+                total[key] += rec[key]
+            ms = rec["ms"]
+            line += (f"; {rec['timing']}: kernel {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s, "
+                     f"{bound / ms:.3f} of the f32 chain bound {bound:.4f} ms ({flops:.4g} flop, "
+                     f"{nbytes} bytes), 3-launch floor {floor:.4f} ms; yardstick cuDNN f32 chain "
+                     f"{rec['library_ms']:.4f} ms"
+                     + (f"; plain {rec['plain_ms']:.4f} ms" if "plain_ms" in rec else "")
+                     + f"; plan reduce / 3x3 / expand (N tile x splits on blocks) "
+                     f"{plan_str(batch, h, c, p, torch.float32)}; per block reduce / 3x3 / "
+                     "expand " + " / ".join(f"{u:.1f}" for u in conv_us(x, ws)) + " us")
+        log(line)
         del x, ws
-    torch.cuda.synchronize()
-    return b2, small_cases
+    log(f"[B2] f32 {smi}: per ResNet-101 forward (4 chains): "
+        + "; ".join(f"B={b} ({v['timing']}): kernel {v['ms']:.4f} ms, "
+                    f"{v['flops'] / v['ms'] / 1e9:.2f} TFLOP/s, {v['bound_ms'] / v['ms']:.3f} of "
+                    f"the f32 bound {v['bound_ms']:.4f} ms, cuDNN f32 {v['library_ms']:.4f} ms "
+                    f"(kernel / cuDNN {v['ms'] / v['library_ms']:.3f})"
+                    for b, v in per_batch.items()))
+    return worst, records
 
 
 def graphed(fn):
@@ -1339,7 +1452,7 @@ def wide_chains(smi):
                               ).to(dev, torch.bfloat16)
         block_err, outside, chain_err = check_chain(xb, ws, B2_TOL)
         flops, nbytes, floor = b2_costs(h, c, p, n, MASK_BATCH)
-        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        bound = chain_bound(flops, nbytes)
         ms = time_ms(lambda: bottleneck_chain(xb, ws), 10)
         cudnn_ms = time_ms(cudnn_chain(xb, ws), 10)
         for key, v in (("kernel", ms), ("cudnn", cudnn_ms), ("bound", bound)):
@@ -1354,7 +1467,7 @@ def wide_chains(smi):
                               ).to(dev, torch.bfloat16)
         block_err, outside, chain_err = check_chain(x1, ws, B2_TOL)
         flops, nbytes, _ = b2_costs(h, c, p, n, 1)
-        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        bound = chain_bound(flops, nbytes)
         ms = time_ms(graphed(lambda: bottleneck_chain(x1, ws)).replay, 20)
         cudnn_ms = time_ms(graphed(cudnn_chain(x1, ws)).replay, 20)
         for key, v in (("kernel", ms), ("cudnn", cudnn_ms), ("bound", bound)):
@@ -1376,6 +1489,28 @@ def wide_chains(smi):
         f"{small['kernel']:.4f} ms, bf16 cuDNN {small['cudnn']:.4f} ms, chain bound "
         f"{small['bound']:.4f} ms; Wide-ResNet-101-2 stage 3 (22 blocks) at B=4: worst block "
         f"err {block_err:.4g}, whole-chain err {chain_err:.4g}")
+    del xb, ws
+    # The f32 instance at Wide-ResNet-50-2's four chains, B=256.
+    f32 = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
+    for h, c, p, n in WIDE_STAGES_50:
+        ws = b2_weights(rng, c, p, n, torch.float32, dev)
+        x = torch.from_numpy(np.abs(rng.randn(MASK_BATCH, h, h, c)).astype(np.float32)).to(dev)
+        block_err, outside, chain_err = check_chain(x, ws, B2_F32_TOL)
+        flops, nbytes, _ = b2_costs(h, c, p, n, MASK_BATCH, f32=True)
+        bound = chain_bound(flops, nbytes, f32=True)
+        ms = time_ms(lambda: bottleneck_chain(x, ws), 3)
+        cudnn_ms = time_ms(cudnn_chain(x, ws), 3)
+        for key, v in (("kernel", ms), ("cudnn", cudnn_ms), ("bound", bound)):
+            f32[key] += v
+        log(f"[resnext] Wide B2 f32 B={MASK_BATCH} H={h} C={c} P={p} blocks={n}: worst block "
+            f"err {block_err:.4g} (tol {B2_F32_TOL} x max|plain|; {outside} outside "
+            f"elementwise), whole-chain err {chain_err:.4g}; kernel {ms:.4f} ms, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.3f} of the f32 chain bound "
+            f"{bound:.4f} ms; yardstick cuDNN f32 chain {cudnn_ms:.4f} ms")
+        del x, ws
+    log(f"[resnext] {smi}: Wide-ResNet-50-2 f32 chains per forward of {MASK_BATCH}: kernel "
+        f"{f32['kernel']:.4f} ms, cuDNN f32 {f32['cudnn']:.4f} ms, f32 chain bound "
+        f"{f32['bound']:.4f} ms ({f32['bound'] / f32['kernel']:.3f} of it)")
     torch.cuda.empty_cache()
 
 
@@ -1791,7 +1926,7 @@ def b2_graph_phase(cases, smi):
         cudnn = time_ms(graphed(cudnn_chain(x, ws)).replay, 20)
         h, c = x.shape[1], x.shape[3]
         flops, nbytes, _ = b2_costs(h, c, ws[0].shape[1], len(ws) // 6, batch)
-        bound = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+        bound = chain_bound(flops, nbytes)
         per_batch[batch] = [v + d for v, d in zip(per_batch.get(batch, (0.0,) * 3),
                                                   (b2, cudnn, bound))]
     log(f"[B2 graphs] {smi}: per ResNet-101 forward (4 chains) as CUDA graph replays: "
@@ -4184,6 +4319,22 @@ def ptrain_world2(rank, port, workdir):
         raise AssertionError(f"rank {rank} handoff: {out['handoff']}")
     del engine, masked
     torch.cuda.empty_cache()
+    if rank == 0:
+        # B2's f32 instance on the same sane trained weights: an f32 engine
+        # from model_best (--dtype float32), block by block at B2_F32_TOL on
+        # this rank's masked batch and on the single image (check_chain raises).
+        args32 = common.build_parser("handoff").parse_args(
+            ["--arch", "resnet50", "--dtype", "float32", "--ckpt",
+             os.path.join(workdir, "multi", "imagenet-resnet50", "model_best"),
+             "--mask-batch", str(HANDOFF_MASKS)])
+        engine32 = common.build_engine(args32, num_classes=8)
+        worst32 = 0.0
+        for batch_x in (masked_batch(image_t, seg_t, mine, width, torch.float32), image_t[None]):
+            for x_in, chain in chain_inputs(engine32.model, batch_x):
+                worst32 = max(worst32, check_chain(x_in.contiguous(), chain, B2_F32_TOL)[0])
+        out["handoff"]["b2_f32_block_err"] = worst32
+        del engine32
+        torch.cuda.empty_cache()
 
     # 3. a mid-epoch resume on both ranks under deterministic algorithms
     xr, yr = synthetic_classification_batch(SEED + 1, 4 * PTRAIN_RESUME_BATCH, 224, 3, 8)
@@ -4353,8 +4504,13 @@ def parallel_train_phase(smi, by_path):
             f"engine, {HANDOFF_MASKS} windows sharded) target {h['target']}, survive agreement "
             f"{h['agree']} with the unsharded engine, prob_target err {h['prob_err']:.3g}, B1 "
             f"bit-exact {h['b1_exact']}, B2 worst block err {h['b2_block_err']:.4g} (tol "
-            f"{B2_TOL} x max|plain|, at B = {HANDOFF_MASKS // 2} and 1); launches "
-            f"{json.dumps(rk['handoff_launches'])}")
+            f"{B2_TOL} x max|plain|, at B = {HANDOFF_MASKS // 2} and 1)"
+            + (f", B2's f32 instance on an f32 engine of the same model_best worst block err "
+               f"{h['b2_f32_block_err']:.4g} (tol {B2_F32_TOL} x max|plain|)"
+               if "b2_f32_block_err" in h else "")
+            + f"; launches {json.dumps(rk['handoff_launches'])}")
+        if rk["rank"] == 0 and "b2_f32_block_err" not in h:
+            raise AssertionError("[parallel train] rank 0 held no f32 B2 check on model_best")
         if rk["resume_err"] != 0.0:
             raise AssertionError(f"[parallel train] rank {rk['rank']}: the resumed two-rank run "
                                  f"differs by {rk['resume_err']}")
@@ -4473,6 +4629,12 @@ def device_and_build():
     log(f"[build] bottleneck_chain SASS: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise AssertionError("B2's library holds no HGMMA: its bf16 kernels do not use wgmma")
+    f32_ops = sass_f32_ops(_cuda_build.so_path("bottleneck_chain"))
+    log("[build] bottleneck_chain SASS, b2_conv_f32 instances (FFMA, LDS.128, tensor-core "
+        "instructions): " + json.dumps(sorted(tuple(v.values()) for v in f32_ops.values())))
+    if not f32_ops or any(v["FFMA"] == 0 or v["MMA"] for v in f32_ops.values()):
+        raise AssertionError(f"B2's f32 instances must run FFMAs and no tensor-core (TF32) "
+                             f"instruction: {f32_ops}")
     stores = sass_b1_stores(_cuda_build.so_path("masked_batch"))
     log(f"[build] masked_batch SASS: {len(stores)} b1_masked_batch instances, global stores "
         "[128-bit, narrower] " + json.dumps(sorted(stores.values())))
@@ -4482,9 +4644,10 @@ def device_and_build():
 
 
 def b2_only() -> int:
-    """``--b2``: only B2's checks and timings (1., 2., 4., Wide-ResNet's
-    chains of 18. and 20.), for comparing two trees of the port on one card
-    in one call. Prints no result line."""
+    """``--b2``: only B2's checks and timings (1., 2., 4. with the f32
+    instance's, Wide-ResNet's chains of 18. in bf16 and f32, 20.), then the
+    f32 instance's end-to-end lines (f32_end_to_end), for comparing two trees
+    of the port on one card in one call. Prints no result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4497,8 +4660,81 @@ def b2_only() -> int:
     _, small_cases = b2_phase(np.random.RandomState(SEED), smi)
     wide_chains(smi)
     b2_graph_phase(small_cases, smi)
+    del small_cases
+    f32_end_to_end(smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     return 0
+
+
+def f32_end_to_end(smi):
+    """``--b2``'s end-to-end lines for B2's f32 instance (the parity mode,
+    ``--dtype float32``), ResNet-101 224x224 f32, TF32 off, on the synthetic
+    image: ``eval_window_masks`` on NUM_SAMPLES window masks in chunks of
+    MASK_BATCH (evals/s, median of 3 warm calls), and the flagship
+    ``bo_window_saliency`` (default BOConfig) as a warm graph replay (host
+    ms to its device-to-host copy, median of 5). Each path's B2 launches
+    are held."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.config import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        BOConfig,
+        SegmentConfig,
+    )
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
+        normalize,
+        to_display_uint8,
+    )
+    from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+    from network_interpretation_imagenet_tpu_torch.saliency.pipeline import random_window_saliency
+    from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+
+    img_u8, _ = synthetic_image(SEED)
+    normalized = normalize(torch.from_numpy(img_u8.astype(np.float32) / 255.0),
+                           IMAGENET_MEAN, IMAGENET_STD).numpy()
+    segments = np.asarray(segment_image(to_display_uint8(torch.from_numpy(normalized)).numpy(),
+                                        SegmentConfig()), np.int32)
+    bundle = create_model("resnet101", "imagenet", dtype=torch.float32)
+    engine = SaliencyEngine(bundle, bundle.init(SEED), mask_batch=MASK_BATCH,
+                            compute_dtype=torch.float32, device="cuda")
+    target, _ = engine.predict_one(normalized)
+    out = random_window_saliency(engine, normalized, segments, num_samples=NUM_SAMPLES,
+                                 seed=SEED, target=target)
+    bottleneck_chain.launches = 0
+    res = engine.eval_window_masks(normalized, segments, out.firsts, out.width, target)
+    window_launches = bottleneck_chain.launches
+    if window_launches != 4 * -(-NUM_SAMPLES // MASK_BATCH) or not np.isfinite(
+            res.prob_target).all():
+        raise AssertionError(f"f32 windows: B2 launched {window_launches} times, or "
+                             "non-finite scores")
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.eval_window_masks(normalized, segments, out.firsts, out.width, target)
+        ts.append(time.perf_counter() - t0)
+    rates = sorted(NUM_SAMPLES / t for t in ts)
+
+    def explain():
+        return bo_window_saliency(engine, normalized, segments, BOConfig(), seed=SEED,
+                                  target=target)
+
+    bottleneck_chain.launches = 0
+    explain()            # the shape's first call runs eagerly
+    eager_launches = bottleneck_chain.launches
+    explain()            # the second captures the graph and replays it
+    if eager_launches == 0:
+        raise AssertionError("the f32 BO path launched no B2")
+    bo_ms = p50_ms(explain, 5)
+    log(f"[B2 f32 e2e] {smi}: ResNet-101 224 f32 eval_window_masks ({NUM_SAMPLES} masks, "
+        f"mask_batch {MASK_BATCH}, B2 launches {window_launches}): {rates[1]:.1f} evals/s "
+        f"(median of 3; {rates[0]:.1f}-{rates[2]:.1f}); bo_window_saliency f32 (B2 launches "
+        f"{eager_launches} eager) warm replay p50 {bo_ms:.3f} ms (5 calls)")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def b1_only() -> int:
@@ -4712,7 +4948,7 @@ def main() -> int:
          "launches_by_path": by_path["bottleneck_chain"], "max_abs_err": b2["block_err"],
          "ms": b2["ms"], "plain_ms": b2["plain_ms"], "bound_ms": max(b2_ops_ms, b2_bytes_ms),
          "bound_by": "operations" if b2_ops_ms >= b2_bytes_ms else "bytes",
-         "library_ms": None},
+         "library_ms": None, "f32_max_abs_err": b2["f32_block_err"], "f32_by_shape": b2["f32"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

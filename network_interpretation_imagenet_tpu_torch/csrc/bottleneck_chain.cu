@@ -70,8 +70,8 @@
 // microseconds, overlaps. (A chain's first launch waits as any kernel does:
 // what ran before it on the stream may still be writing its weights.)
 //
-// f32 (the parity mode): a SIMT FMA implicit GEMM with cp.async tiles, since
-// wgmma has no true-f32 mode.
+// f32 (the parity mode): the same frame on the CUDA cores; see the f32 path
+// below.
 
 #include <cuda.h>  // CUtensorMap types only; the driver is reached at run time
 #include <cuda_bf16.h>
@@ -651,191 +651,484 @@ int chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* 
 }
 
 // ----------------------------------------------------------------- f32 path
+//
+// The f32 instance (the parity mode): IEEE f32 FMAs on the CUDA cores, since
+// wgmma has no true-f32 mode and TF32 stays off. b2_conv_f32<KS, BN> keeps
+// the bf16 kernel's frame: persistent blocks over 128 x BN output tiles, a
+// ring of TMA loads behind full/empty mbarriers (A through a 2-D map for a
+// 1x1, through the im2col map for the 3x3, B through a 2-D map: no address
+// arithmetic per element), split-K with the fixed-order fixup, programmatic
+// dependent launch.
+//
+// What bounds it: operations, 2*M*K*N / 67 TFLOP/s, about 15x the bf16
+// instance's bound; and right behind them shared memory, which hands an SM
+// 32 four-byte values a clock, broadcasts included (a 16-byte load is four),
+// against 128 FMA lanes. A thread multiplying an R x C register tile runs
+// R*C / (R + C) FMAs per value it loads; at 4 the two pipes tie. (A 4 x 4
+// tile with A read as scalars runs 2 and reached 0.50 of the bound on the
+// H100; an 8 x 8 tile measured 0.57.) So four warps each compute 32 x BN
+// outputs, a thread 8 rows x BN/8 columns: 8 x 16 (5.3 FMAs a value) for
+// BN = 128, 8 x 8 (4) for BN = 64; rows ty + 4i (i = 0..7), columns 32j + 4tx
+// .. + 3 (j < BN/32), lane = 8ty + tx. A K step is 32 f32 (one 128-byte row
+// of a 128B-swizzled box), taken in groups of 4: a thread loads its 8 rows' 4
+// k values, then for each k its columns, as 16-byte shared loads, the
+// swizzle putting a quarter-warp's rows, and its column chunks, in distinct
+// bank groups; 8 + 4 * BN/32 loads feed 32 * BN/8 FFMAs. The swizzled
+// offsets come from 16 per-thread constants, so a load costs no integer
+// instruction. Thread 0 issues the loads between its own products
+// (F32Loads): a producer warp would put a third warp on a quarter of the SM,
+// whose registers then cap each thread at 168, which spilled the
+// accumulators. 128 threads at up to 255 registers each, two blocks an SM.
 
-// 64x64 output tile, each of 256 threads 4x4 outputs, K step 16, two stages.
-constexpr int kThreads = 256;
-constexpr int kFM = 64, kFN = 64, kFK = 16, kFStages = 2, kFPad = 4;
-constexpr int kFLda = kFK + kFPad, kFLdb = kFN + kFPad;
+constexpr int kF32K = 32;                       // K per stage: a 128-byte row of f32
+constexpr int kF32ABytes = kBM * kF32K * 4;     // one A stage, 128 x 32: 16 KB
+constexpr int kF32BoxBytes = kF32K * 128;       // one 32 x 32 box of B: 4 KB
+constexpr int kF32Threads = 128;                // four warps, 32 rows each
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
+template <int BN>
+struct F32Tile {
+  static constexpr int kChunks = BN / 32;       // a thread's 16-byte column chunks, one a box
+  static constexpr int kStage = kF32ABytes + kF32K * BN * 4;
+  static constexpr int kSums = 8 * kChunks;     // a thread's sums as float4
+};
+
+// A 16-byte shared load at a shared-window address (an LDS.128: a generic
+// pointer into the aligned ring would compile to a generic load).
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
+  return v;
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+
+__device__ __forceinline__ float f4_at(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// Loads the A (activation) tiles of one output tile. Each thread copies the
-// same 16-byte column of ITERS fixed rows at every K step, so the rows'
-// pixel coordinates are computed once.
-template <int KS>
-struct ALoader {
-  static constexpr int VEC = 4;
-  static constexpr int VPR = kFK / VEC;  // 16-byte vectors per tile row
-  static constexpr int ITERS = kFM * VPR / kThreads;
-
-  long long m[ITERS];  // output pixel of the row, -1 past the end
-  int h[ITERS], w[ITERS];
-  int row0, kv;
-
-  __device__ ALoader(long long m0, long long M, int H, int W) {
-    row0 = threadIdx.x / VPR;
-    kv = (threadIdx.x % VPR) * VEC;
+// B of one K step (rows kt * 32 .. + 31 of Wt, columns n0 .. n0 + BN - 1) into
+// one ring stage: BN / 32 boxes of 32 x 32.
+template <int BN>
+__device__ __forceinline__ void load_b_f32(uint8_t* dst, const CUtensorMap* bmap, uint64_t* bar,
+                                           int n0, int kt) {
 #pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      const long long mi = m0 + row0 + i * (kThreads / VPR);
-      m[i] = mi < M ? mi : -1;
-      const long long mm = mi < M ? mi : 0;
-      w[i] = static_cast<int>(mm % W);
-      h[i] = static_cast<int>((mm / W) % H);
-    }
+  for (int j = 0; j < BN / 32; ++j)
+    tma_load_2d(dst + j * kF32BoxBytes, bmap, bar, n0 + 32 * j, kt * kF32K);
+}
+
+// A thread's sums acc[i][4j .. 4j + 3] as float4 number q = i * C + j.
+template <int C>
+__device__ __forceinline__ float4 sums_at(const float (&acc)[8][4 * C], int q) {
+  const float* a = &acc[q / C][(q % C) * 4];
+  return make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// Split-K for the f32 tile, as split_arrive / split_sum do for bf16: each
+// thread's sums leave as F32Tile::kSums float4, kF32Threads apart (coalesced).
+template <int C>
+__device__ __forceinline__ bool split_arrive_f32(const float (&acc)[8][4 * C], float4* slots,
+                                                 int* counter, int split, int splits,
+                                                 volatile int* flag) {
+  const int t = threadIdx.x;
+  if (t == 0) *flag = ld_acquire(counter) == splits - 1;  // every other split is in
+  __syncthreads();
+  bool last = *flag;
+  if (!last) {
+    float4* mine = slots + split * 8 * C * kF32Threads;
+#pragma unroll
+    for (int q = 0; q < 8 * C; ++q) __stcg(mine + q * kF32Threads + t, sums_at<C>(acc, q));
+    __threadfence();
+    __syncthreads();  // every thread's sums are out, and every thread has read *flag
+    if (t == 0) *flag = atomic_add_acq_rel(counter, 1) == splits - 1;
+    __syncthreads();
+    last = *flag;
   }
+  if (last && t == 0) *counter = 0;
+  return last;
+}
 
-  __device__ void load(float* As, const float* A, int k0, int K, int H, int W, int Cin) const {
-    const int k = k0 + kv;
+// The last block's sum over the splits in split order 0..S-1, its own sums
+// (still in registers) at its own index: the same bits whichever block
+// arrived last.
+template <int C>
+__device__ __forceinline__ void split_sum_f32(float (&acc)[8][4 * C], const float4* slots,
+                                              int split, int splits) {
+  const int t = threadIdx.x;
 #pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      float* dst = As + (row0 + i * (kThreads / VPR)) * kFLda + kv;
-      bool ok = m[i] >= 0 && k < K;
-      const float* src = A;
-      if (ok) {
-        if (KS == 1) {
-          src = A + m[i] * Cin + k;
+  for (int q0 = 0; q0 < 8 * C; q0 += 4) {  // 4 float4 per thread in flight per split
+    float4 sum[4];
+    for (int s = 0; s < splits; ++s) {
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int q = q0 + qq;
+        const float4 v = s == split ? sums_at<C>(acc, q)
+                                    : __ldcg(slots + (s * 8 * C + q) * kF32Threads + t);
+        if (s == 0) {
+          sum[qq] = v;
         } else {
-          const int tap = k / Cin;
-          const int ci = k - tap * Cin;
-          const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-          const int hi = h[i] + dh, wi = w[i] + dw;
-          ok = hi >= 0 && hi < H && wi >= 0 && wi < W;
-          if (ok) src = A + (m[i] + static_cast<long long>(dh) * W + dw) * Cin + ci;
+          sum[qq].x += v.x;
+          sum[qq].y += v.y;
+          sum[qq].z += v.z;
+          sum[qq].w += v.w;
         }
       }
-      cp_async16(dst, src, ok);
     }
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      float* a = &acc[(q0 + qq) / C][((q0 + qq) % C) * 4];
+      a[0] = sum[qq].x;
+      a[1] = sum[qq].y;
+      a[2] = sum[qq].z;
+      a[3] = sum[qq].w;
+    }
+  }
+}
+
+// The ring's loads as one stream over the block's (item, K step) pairs,
+// issued by thread 0 between its own products. issue() puts the stream's next
+// K step into its stage once every warp has released that stage: thread 0
+// keeps the stream `stages` steps ahead of the warps, so it waits only for
+// the stage all of them have just left, and the next item's first stages
+// load under this item's epilogue.
+template <int KS, int BN>
+struct F32Loads {
+  const CUtensorMap* amap;
+  const CUtensorMap* bmap;
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int H, W, kc, nk, n_tiles, splits, items, stages;
+  int item, kt, k1, n0, m0, img, p, q, s, ph;
+
+  __device__ void start_item() {
+    const int tile = item / splits, split = item - tile * splits;
+    kt = split * nk / splits;
+    k1 = (split + 1) * nk / splits;
+    n0 = (tile % n_tiles) * BN;
+    m0 = (tile / n_tiles) * kBM;
+    if constexpr (KS == 3) {  // the tile's first output pixel
+      img = m0 / (H * W);
+      p = (m0 / W) % H;
+      q = m0 % W;
+    }
+  }
+  __device__ bool more() const { return item < items; }
+  __device__ void load_a_and_advance() {
+    uint8_t* a = ring + s * F32Tile<BN>::kStage;
+    if constexpr (KS == 1) {
+      tma_load_2d(a, amap, full + s, kt * kF32K, m0);
+    } else {
+      const int tap = kt / kc;
+      tma_load_im2col(a, amap, full + s, (kt - tap * kc) * kF32K, q - 1, p - 1, img, tap % 3,
+                      tap / 3);
+    }
+    if (++kt == k1) {
+      item += gridDim.x;
+      if (item < items) start_item();
+    }
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  __device__ void issue() {
+    mbar_wait(empty + s, ph ^ 1);  // a fresh barrier passes: its previous phase counts as done
+    // The warps read the stage through the generic proxy and TMA overwrites
+    // it through the async proxy: without this fence the load may land before
+    // those reads (seen on the H100: a 16 x 32 corner of a tile wrong in 1
+    // run in 5 at ResNet-101's stage 1, B=256).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(full + s, F32Tile<BN>::kStage);
+    load_b_f32<BN>(ring + s * F32Tile<BN>::kStage + kF32ABytes, bmap, full + s, n0, kt);
+    load_a_and_advance();
   }
 };
 
-// Loads the B (weight, [K, Cout] row-major) tile: one 16-byte vector per thread.
-__device__ __forceinline__ void load_b(float* Bs, const float* Wt, int k0, int n0, int K,
-                                       int Cout) {
-  constexpr int VPR = kFN / 4;
-  static_assert(kFK * VPR == kThreads, "one B vector per thread");
-  const int r = threadIdx.x / VPR;
-  const int c = (threadIdx.x % VPR) * 4;
-  const bool ok = k0 + r < K && n0 + c < Cout;
-  const float* src = ok ? Wt + static_cast<long long>(k0 + r) * Cout + n0 + c : Wt;
-  cp_async16(Bs + r * kFLdb + c, src, ok);
-}
+// out[m, n] = relu(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])) in
+// f32, persistent over the tiles' `splits` K slices as b2_conv_wgmma walks
+// them. A comes through `amap` (2-D [M, Cin] for a 1x1, im2col of
+// [B, H, W, Cin] for the 3x3; rows past M and the 3x3's padding arrive as
+// TMA's zero fill), Wt [K, Cout] through `bmap`. The epilogue reads
+// `residual` (which may alias `out`: each thread reads the elements it then
+// writes) and stores `out` straight from registers, rows past M masked.
+template <int KS, int BN>
+__global__ void __launch_bounds__(kF32Threads, 2)
+b2_conv_f32(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+            const float* __restrict__ bias, const float* residual, float* out, int M, int Cout,
+            int H, int W, int kc, int stages, int n_tiles, int tiles, int splits,
+            float* __restrict__ part, int* __restrict__ counters) {
+  using T = F32Tile<BN>;
+  constexpr int C = T::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * T::kStage);
+  uint64_t* empty = full + stages;
+  __shared__ int last_flag[2];  // split_arrive_f32's verdict, by item parity
+  const int nk = KS * KS * kc, items = tiles * splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-// out[m, n] = relu(sum_k A[m, k] * Wt[k, n] + bias[n] (+ residual[m, n])),
-// with A the implicit im2col of the NHWC input for a KS x KS, stride-1,
-// same-padded convolution. `residual` may alias `out`.
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
-b2_conv_f32(const float* __restrict__ A, const float* __restrict__ Wt,
-            const float* __restrict__ bias, const float* residual, float* out, long long M,
-            int H, int W, int Cin, int Cout) {
-  constexpr int A_ELEMS = kFM * kFLda, STAGE_ELEMS = A_ELEMS + kFK * kFLdb;
-  __shared__ __align__(128) float smem[kFStages * STAGE_ELEMS];
-
-  const int K = KS * KS * Cin;
-  const int nk = (K + kFK - 1) / kFK;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kFM;
-  const int n0 = blockIdx.y * kFN;
-  const ALoader<KS> aload(m0, M, H, W);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-
-#pragma unroll
-  for (int s = 0; s < kFStages - 1; ++s) {
-    if (s < nk) {
-      aload.load(smem + s * STAGE_ELEMS, A, s * kFK, K, H, W, Cin);
-      load_b(smem + s * STAGE_ELEMS + A_ELEMS, Wt, s * kFK, n0, K, Cout);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kF32Threads / 32);  // one arrival per warp
     }
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  launch_dependents();
+
+  F32Loads<KS, BN> loads{&amap, &bmap, ring, full, empty, H, W, kc, nk, n_tiles, splits, items,
+                         stages, static_cast<int>(blockIdx.x), 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  int ahead = 0;
+  if (threadIdx.x == 0 && loads.more()) {
+    // The weights do not depend on the previous launch: the first item's
+    // first stages of B start before the wait for it, A after.
+    loads.start_item();
+    ahead = min(stages, loads.k1 - loads.kt);
+    for (int i = 0; i < ahead; ++i) {
+      mbar_expect_tx(full + i, T::kStage);
+      load_b_f32<BN>(ring + i * T::kStage + kF32ABytes, &bmap, full + i, loads.n0,
+                     loads.kt + i);
+    }
+  }
+  wait_previous_launch();  // before A, the residual, the split scratch and the output
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ahead; ++i) loads.load_a_and_advance();
+    for (int i = ahead; i < stages && loads.more(); ++i) loads.issue();
   }
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kFStages - 2>();
-    __syncthreads();
-    const int pf = kt + kFStages - 1;
-    if (pf < nk) {
-      float* st = smem + (pf % kFStages) * STAGE_ELEMS;
-      aload.load(st, A, pf * kFK, K, H, W, Cin);
-      load_b(st + A_ELEMS, Wt, pf * kFK, n0, K, Cout);
-    }
-    cp_async_commit();
-
-    const float* As = smem + (kt % kFStages) * STAGE_ELEMS;
-    const float* Bs = As + A_ELEMS;
+  // Byte offsets in a stage. Row r's logical chunk g (k = 4g .. 4g + 3) of A
+  // lies at r * 128 + ((g ^ (r % 8)) << 4), and r % 8 = ty + 4 (i % 2) for
+  // r = 32 warp + ty + 4i; row k's chunk tx of B's box j at kF32ABytes +
+  // j * 4 KB + k * 128 + ((tx ^ (k % 8)) << 4), and k % 8 = 4 (g % 2) + kk
+  // for k = 4g + kk. So xa[g ^ 4 (i % 2)] + 512 i and xb[4 (g % 2) + kk] +
+  // 4096 j + 128 k hold every load's offset, the rest a compile-time constant.
+  const int ty = lane / 8, tx = lane % 8;
+  uint32_t xa[8], xb[8];
 #pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * kFLdb + tx * 4);
+  for (int c = 0; c < 8; ++c) {
+    xa[c] = (warp * 32 + ty) * 128 + ((c ^ ty) << 4);
+    xb[c] = kF32ABytes + ((tx ^ c) << 4);
+  }
+  const uint32_t ring_u32 = smem_u32(ring);
+  int s = 0, ph = 0, parity = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, parity ^= 1) {
+    const int tile = item / splits, split = item - tile * splits;
+    const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
+    const int r0 = m0 + warp * 32 + ty;  // this thread's rows r0 + 4i
+    const int k1 = (split + 1) * nk / splits;
+    float acc[8][4 * C];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * C; ++c) acc[i][c] = 0.f;
+    for (int kt = split * nk / splits; kt < k1; ++kt) {
+      mbar_wait(full + s, ph);
+      const uint32_t st = ring_u32 + s * T::kStage;
+#pragma unroll
+      for (int g = 0; g < kF32K / 4; ++g) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = lds128(st + xa[g ^ ((i & 1) << 2)] + 512 * i);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 b[C];
+#pragma unroll
+          for (int j = 0; j < C; ++j)
+            b[j] = lds128(st + xb[((g & 1) << 2) | kk] + kF32BoxBytes * j + 128 * (4 * g + kk));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = f4_at(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < C; ++j) {
+              acc[i][4 * j] = fmaf(av, b[j].x, acc[i][4 * j]);
+              acc[i][4 * j + 1] = fmaf(av, b[j].y, acc[i][4 * j + 1]);
+              acc[i][4 * j + 2] = fmaf(av, b[j].z, acc[i][4 * j + 2]);
+              acc[i][4 * j + 3] = fmaf(av, b[j].w, acc[i][4 * j + 3]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // the warp has read the stage
+      if (threadIdx.x == 0 && loads.more()) loads.issue();
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    if constexpr (BN == 64) {  // only 64-wide tiles split (conv_plan_f32); the 128-wide
+      if (splits > 1) {        // tile's registers have no room for the fixup
+        float4* slots = reinterpret_cast<float4*>(part) + tile * splits * T::kSums * kF32Threads;
+        if (!split_arrive_f32<C>(acc, slots, counters + tile, split, splits, last_flag + parity))
+          continue;
+        split_sum_f32<C>(acc, slots, split, splits);
+      }
+    }
+
+    // Epilogue: bias and residual in f32, then ReLU, stored from registers
+    // while the next tile's first stages load. `residual` may alias `out`, so
+    // no load may move past a store: each half of a thread's rows (i < 4, then
+    // i >= 4) loads all its residual values first, one round trip to memory a
+    // half. (Staging the output through the ring for TMA stores measured
+    // slower: 1.62 against 1.43 ms for stage 3's 3x3s at B=256, PERF.md.)
+    float4 b4[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      b4[j] = __ldg(reinterpret_cast<const float4*>(bias + n0 + 32 * j + 4 * tx));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 x[4][C];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int m = r0 + 4 * (4 * h + i);
+          x[i][j] = residual != nullptr && m < M
+                        ? *reinterpret_cast<const float4*>(
+                              residual + static_cast<long long>(m) * Cout + n0 + 32 * j + 4 * tx)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float a = As[(ty * 4 + i) * kFLda + kk];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+        const int m = r0 + 4 * (4 * h + i);
+        if (m >= M) continue;  // the ragged last tile
+        const float* a = acc[4 * h + i];
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const float4 v = make_float4(a[4 * j] + b4[j].x + x[i][j].x,
+                                       a[4 * j + 1] + b4[j].y + x[i][j].y,
+                                       a[4 * j + 2] + b4[j].z + x[i][j].z,
+                                       a[4 * j + 3] + b4[j].w + x[i][j].w);
+          *reinterpret_cast<float4*>(out + static_cast<long long>(m) * Cout + n0 + 32 * j +
+                                     4 * tx) =
+              make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+        }
       }
     }
   }
-  cp_async_wait<0>();
+}
 
-  const int n = n0 + tx * 4;
-  if (n >= Cout) return;
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + n));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const long long off = m * Cout + n;
-    float4 r = make_float4(acc[i][0] + b4.x, acc[i][1] + b4.y, acc[i][2] + b4.z,
-                           acc[i][3] + b4.w);
-    if (residual != nullptr) {
-      const float4 x = *reinterpret_cast<const float4*>(residual + off);
-      r.x += x.x;
-      r.y += x.y;
-      r.z += x.z;
-      r.w += x.w;
-    }
-    r.x = fmaxf(r.x, 0.f);
-    r.y = fmaxf(r.y, 0.f);
-    r.z = fmaxf(r.z, 0.f);
-    r.w = fmaxf(r.w, 0.f);
-    *reinterpret_cast<float4*>(out + off) = r;
+// [rows, cols] f32 row-major, read as boxes of box_rows x 32 columns (128 B).
+bool map_2d_f32(EncodeTiled enc, CUtensorMap* map, const void* base, long long rows, int cols,
+                int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {kF32K, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// im2col of an f32 NHWC [B, H, W, C] tensor, as map_im2col: 128 pixels x 32
+// channels (128 B) per load.
+bool map_im2col_f32(EncodeIm2col enc, CUtensorMap* map, const void* base, int B, int H, int W,
+                    int C) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 4,
+                                 static_cast<cuuint64_t>(W) * C * 4,
+                                 static_cast<cuuint64_t>(H) * W * C * 4};
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides,
+             lower, upper, kF32K, kBM, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KS, int BN>
+int launch_f32_bn(const CUtensorMap& amap, const CUtensorMap& bmap, const float* bias,
+                  const float* res, float* out, int M, int H, int W, int Cout, int kc,
+                  const Plan& p, int tiles, const SplitScratch& scratch, bool pdl,
+                  cudaStream_t s) {
+  static bool opted_in = false;  // > 48 KB of dynamic shared memory needs the opt-in
+  if (!opted_in) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, b2_conv_f32<KS, BN>);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(b2_conv_f32<KS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax - static_cast<int>(attr.sharedSizeBytes));
+    if (err == cudaSuccess)  // all of the SM's 228 KB as shared memory: two 64-wide blocks fit
+      err = cudaFuncSetAttribute(b2_conv_f32<KS, BN>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
   }
+  cudaLaunchAttribute attr;  // programmatic dependent launch (launch_dependents)
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = pdl;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, b2_conv_f32<KS, BN>, amap, bmap, bias, res,
+                                             out, M, Cout, H, W, kc, p.stages, Cout / BN, tiles,
+                                             p.splits, scratch.part, scratch.counters));
 }
 
 template <int KS>
-void conv_f32(const float* a, const void* w, const void* b, const float* res, float* out,
-              long long M, int H, int W, int Cin, int Cout, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((M + kFM - 1) / kFM), (Cout + kFN - 1) / kFN);
-  b2_conv_f32<KS><<<grid, kThreads, 0, s>>>(a, static_cast<const float*>(w),
-                                            static_cast<const float*>(b), res, out, M, H, W, Cin,
-                                            Cout);
+int launch_f32(EncodeTiled enc, const CUtensorMap& amap, const void* wt, const void* bias,
+               const float* res, float* out, int M, int H, int W, int Cin, int Cout,
+               const Plan& p, const SplitScratch& sc, bool pdl, cudaStream_t s) {
+  const long long need = 1024 + static_cast<long long>(p.stages) *
+                                    (kF32ABytes + kF32K * 4 * p.bn + 16);
+  const long long tiles = (static_cast<long long>(M) + kBM - 1) / kBM *
+                          (Cout / (p.bn > 0 ? p.bn : 1));
+  if ((p.bn != 64 && p.bn != 128) || Cout % p.bn || Cin % kF32K || p.stages < 2 ||
+      p.smem < need || p.smem > kSmemMax || p.splits < 1 ||
+      p.splits > KS * KS * (Cin / kF32K) || p.grid < 1 || p.grid > tiles * p.splits ||
+      (p.splits > 1 && (p.bn != 64 || sc.part == nullptr || sc.counters == nullptr)))
+    return kErrPlan;
+  CUtensorMap bmap;
+  if (!map_2d_f32(enc, &bmap, wt, static_cast<long long>(KS) * KS * Cin, Cout, kF32K))
+    return kErrEncode;
+  const float* b = static_cast<const float*>(bias);
+  const int kc = Cin / kF32K, t = static_cast<int>(tiles);
+  if (p.bn == 64)
+    return launch_f32_bn<KS, 64>(amap, bmap, b, res, out, M, H, W, Cout, kc, p, t, sc, pdl, s);
+  return launch_f32_bn<KS, 128>(amap, bmap, b, res, out, M, H, W, Cout, kc, p, t, sc, pdl, s);
 }
 
 int chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w, int n_blocks,
-              int B, int H, int W, int C, int P, void* stream) {
+              int B, int H, int W, int C, int P, const int* plan, void* part, void* counters,
+              void* stream) {
+  static EncodeTiled tiled = nullptr;
+  static EncodeIm2col im2col = nullptr;
+  if (tiled == nullptr || im2col == nullptr) {
+    tiled = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+    im2col = reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
+    if (tiled == nullptr || im2col == nullptr) return kErrDriver;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long M = static_cast<long long>(B) * H * W;
+  const int M = B * H * W;  // below 2^31: the wrapper checks
+  const Plan reduce{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const Plan spatial{plan[5], plan[6], plan[7], plan[8], plan[9]};
+  const Plan expand{plan[10], plan[11], plan[12], plan[13], plan[14]};
+  const SplitScratch sc{static_cast<float*>(part), static_cast<int*>(counters)};
   const float* in = static_cast<const float*>(x);
   float* y = static_cast<float*>(out);
   float* a = static_cast<float*>(t1);
   float* b = static_cast<float*>(t2);
   for (int i = 0; i < n_blocks; ++i) {
     const void* const* wb = w + 6 * i;  // w1, b1, w3, b3, w2, b2
-    conv_f32<1>(in, wb[0], wb[1], nullptr, a, M, H, W, C, P, s);
-    conv_f32<3>(a, wb[2], wb[3], nullptr, b, M, H, W, P, P, s);
-    conv_f32<1>(b, wb[4], wb[5], in, y, M, H, W, P, C, s);
+    CUtensorMap am;
+    int rc = 0;
+    if (!map_2d_f32(tiled, &am, in, M, C, kBM)) return kErrEncode;
+    rc = launch_f32<1>(tiled, am, wb[0], wb[1], nullptr, a, M, H, W, C, P, reduce, sc, i > 0, s);
+    if (rc) return rc;
+    if (!map_im2col_f32(im2col, &am, a, B, H, W, P)) return kErrEncode;
+    rc = launch_f32<3>(tiled, am, wb[2], wb[3], nullptr, b, M, H, W, P, P, spatial, sc, true, s);
+    if (rc) return rc;
+    if (!map_2d_f32(tiled, &am, b, M, P, kBM)) return kErrEncode;
+    rc = launch_f32<1>(tiled, am, wb[4], wb[5], in, y, M, H, W, P, C, expand, sc, true, s);
+    if (rc) return rc;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     in = y;
@@ -847,15 +1140,17 @@ int chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w
 
 extern "C" {
 
-// x, out: [B, H, W, C] NHWC; t1, t2: [B, H, W, P] scratch; w: host array of
-// 6*n_blocks device pointers per block (w1 [C, P], b1 f32 [P], w3 [3, 3, P, P],
-// b3 f32 [P], w2 [P, C], b2 f32 [C]); plan: 15 host ints, (N tile, stages,
-// dynamic shared-memory bytes, grid, K splits) for the reduce, 3x3 and expand
-// convolutions; part: f32 scratch for the partial tiles of the largest split
-// launch, counters: one zeroed int32 per tile of it (both may be null when
-// no launch splits K). C and P are multiples of 64. Returns
-// cudaGetLastError(), or -1 (no driver entry point for tensor maps), -2 (a
-// tensor map was refused) or -3 (a plan the kernel cannot run).
+// Both entries: x, out: [B, H, W, C] NHWC in the entry's type; t1, t2:
+// [B, H, W, P] scratch; w: host array of 6*n_blocks device pointers per block
+// (w1 [C, P], b1 f32 [P], w3 [3, 3, P, P], b3 f32 [P], w2 [P, C], b2 f32 [C]);
+// plan: 15 host ints, (N tile, stages, dynamic shared-memory bytes, grid, K
+// splits) for the reduce, 3x3 and expand convolutions (ops/bottleneck_chain.py:
+// conv_plan for bf16, conv_plan_f32 for f32); part: f32 scratch for the
+// partial tiles of the largest split launch, counters: one zeroed int32 per
+// tile of it (both may be null when no launch splits K). C and P are
+// multiples of 64. Returns cudaGetLastError(), or -1 (no driver entry point
+// for tensor maps), -2 (a tensor map was refused) or -3 (a plan the kernel
+// cannot run).
 int bottleneck_chain_bf16(const void* x, void* out, void* t1, void* t2, const void* const* w,
                           int n_blocks, int B, int H, int W, int C, int P, const int* plan,
                           void* part, void* counters, void* stream) {
@@ -863,8 +1158,9 @@ int bottleneck_chain_bf16(const void* x, void* out, void* t1, void* t2, const vo
 }
 
 int bottleneck_chain_f32(const void* x, void* out, void* t1, void* t2, const void* const* w,
-                         int n_blocks, int B, int H, int W, int C, int P, void* stream) {
-  return chain_f32(x, out, t1, t2, w, n_blocks, B, H, W, C, P, stream);
+                         int n_blocks, int B, int H, int W, int C, int P, const int* plan,
+                         void* part, void* counters, void* stream) {
+  return chain_f32(x, out, t1, t2, w, n_blocks, B, H, W, C, P, plan, part, counters, stream);
 }
 
 }  // extern "C"
