@@ -55,6 +55,7 @@ from network_interpretation_imagenet_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from network_interpretation_imagenet_tpu_torch.saliency.engine import outcomes
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 LENGTHSCALE_GRID = BOConfig.lengthscale_grid
 MAX_GRAPHS = 4   # input shapes whose CUDA graph a runner keeps; the least recently used goes
@@ -178,7 +179,9 @@ class FusedWindowBO:
     of a shape, and a one-shot call costs one eager run and no capture. A
     runner keeps the graphs of its last ``MAX_GRAPHS`` shapes. A failed
     capture raises. On the CPU the program runs eagerly (``cuda_graph``
-    is False).
+    is False). Traced as spans ``bo.upload`` (the input copies), then
+    ``bo.replay`` (the static inputs' copies and the replay), or ``bo.eager``
+    or ``bo.capture``.
 
     ``mesh``: the collective runner of every rank (same inputs on each; see
     the module docstring). With ``batch_images`` the image count must split
@@ -214,12 +217,13 @@ class FusedWindowBO:
                 torch.as_tensor(t)[None]
                 for t in (images, segments, widths, targets, uppers, draws))
         dev = self.device
-        inputs = (torch.as_tensor(images).to(dev, torch.float32).contiguous(),
-                  torch.as_tensor(segments).to(dev, torch.int32).contiguous(),
-                  torch.as_tensor(np.asarray(widths)).to(dev, torch.int32).reshape(-1),
-                  torch.as_tensor(targets).to(dev, torch.int64).reshape(-1),
-                  torch.as_tensor(uppers).to(dev, torch.float32).reshape(-1),
-                  torch.as_tensor(draws).to(dev, torch.float32))
+        with trace.span("bo.upload"):
+            inputs = (torch.as_tensor(images).to(dev, torch.float32).contiguous(),
+                      torch.as_tensor(segments).to(dev, torch.int32).contiguous(),
+                      torch.as_tensor(np.asarray(widths)).to(dev, torch.int32).reshape(-1),
+                      torch.as_tensor(targets).to(dev, torch.int64).reshape(-1),
+                      torch.as_tensor(uppers).to(dev, torch.float32).reshape(-1),
+                      torch.as_tensor(draws).to(dev, torch.float32))
         if len({t.shape[0] for t in inputs}) != 1:
             raise ValueError("fused BO: images, segments, widths, targets, uppers and draws "
                              "must have one entry per image")
@@ -229,14 +233,19 @@ class FusedWindowBO:
         if self.batch_images and self.mesh is not None:
             # Image sharding: this rank's loops, then one all-gather.
             local = tuple(shard_batch(self.mesh, t, self.data_axis) for t in inputs)
-            out = self._on_card(local) if self.cuda_graph else self._program(*local)
+            out = self._on_card(local) if self.cuda_graph else self._eager(local)
             xs, ys, survived = all_gather_rows(self.mesh, list(out), self.data_axis,
                                                fingerprint=inputs)
             return xs, ys, survived, self.max_obs
-        xs, ys, survived = self._on_card(inputs) if self.cuda_graph else self._program(*inputs)
+        xs, ys, survived = self._on_card(inputs) if self.cuda_graph else self._eager(inputs)
         if not self.batch_images:
             xs, ys, survived = xs[0], ys[0], survived[0]
         return xs, ys, survived, self.max_obs
+
+    def _eager(self, inputs):
+        """The program run outside a graph: span ``bo.eager``."""
+        with trace.span("bo.eager"):
+            return self._program(*inputs)
 
     def _on_card(self, inputs):
         key = tuple(tuple(t.shape) for t in inputs)
@@ -244,18 +253,20 @@ class FusedWindowBO:
             self.graphs[key] = None
             while len(self.graphs) > MAX_GRAPHS:
                 self.graphs.popitem(last=False)
-            return self._program(*inputs)
+            return self._eager(inputs)
         self.graphs.move_to_end(key)
         if self.graphs[key] is None:
-            static = tuple(t.clone() for t in inputs)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self._program(*static)
-            self.graphs[key] = (graph, static, out)
+            with trace.span("bo.capture"):
+                static = tuple(t.clone() for t in inputs)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = self._program(*static)
+                self.graphs[key] = (graph, static, out)
         graph, static, out = self.graphs[key]
-        for s, t in zip(static, inputs):
-            s.copy_(t)
-        graph.replay()
+        with trace.span("bo.replay"):
+            for s, t in zip(static, inputs):
+                s.copy_(t)
+            graph.replay()
         # Copies, so a later call's replay cannot overwrite what this one returned.
         return tuple(t.clone() for t in out)
 

@@ -33,6 +33,7 @@ from network_interpretation_imagenet_tpu_torch.saliency.engine import (
     SaliencyEngine,
 )
 from network_interpretation_imagenet_tpu_torch.saliency.pipeline import SaliencyOutput
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 
 def fused_runner(engine: SaliencyEngine, max_candidates: int, cfg: BOConfig, q: int,
@@ -53,11 +54,12 @@ def fused_runner(engine: SaliencyEngine, max_candidates: int, cfg: BOConfig, q: 
 
 
 def _assemble_output(segments, num_segments, width, target, bo_res) -> SaliencyOutput:
-    """Heatmap + SaliencyOutput from one image's BO trace (host). The
-    reference sums the labels of all BO-written mask PNGs
-    (``bayesian_active_learning_imagenet.py:312-344``)."""
-    heat = aggregate.summed_superpixel_labels_np(
-        segments, bo_res.xp.astype(np.int32), width, bo_res.survived)
+    """Heatmap + SaliencyOutput from one image's BO trace (host; span
+    ``bo.heatmap``). The reference sums the labels of all BO-written mask
+    PNGs (``bayesian_active_learning_imagenet.py:312-344``)."""
+    with trace.span("bo.heatmap"):
+        heat = aggregate.summed_superpixel_labels_np(
+            segments, bo_res.xp.astype(np.int32), width, bo_res.survived)
     return SaliencyOutput(
         segments=segments,
         num_segments=num_segments,
@@ -75,8 +77,10 @@ def _assemble_output(segments, num_segments, width, target, bo_res) -> SaliencyO
 
 def _traces(xs, ys, survived, count: int):
     """BOResults from the fused runner's device outputs ([N, M] each): one
-    device-to-host copy for all of them."""
-    host = torch.stack([xs, ys, survived.float()]).cpu().numpy()
+    device-to-host copy for all of them (span ``bo.fetch``), which waits
+    for the loop."""
+    with trace.span("bo.fetch"):
+        host = torch.stack([xs, ys, survived.float()]).cpu().numpy()
     return [BOResult(xp=host[0, i, :count].astype(int), yp=host[1, i, :count],
                      survived=host[2, i, :count] > 0.5) for i in range(host.shape[1])]
 
@@ -104,36 +108,44 @@ def bo_window_saliency(
     ``fused=False`` runs the host loop, whose draws are numpy's
     ``RandomState(seed)`` as in the JAX package. ``mesh`` (fused only; every
     rank calls with the same inputs): each forward's starts shard over the
-    mesh's data axis, so pair it with ``proposals_per_iter`` >= the ranks."""
+    mesh's data axis, so pair it with ``proposals_per_iter`` >= the ranks.
+
+    Traced as span ``bo.call``, a request's root (its request id is the
+    span's own unless a caller's span is open), over ``bo.draws``, the
+    runner's spans (``bo.upload``, ``bo.replay``, ``bo.eager``,
+    ``bo.capture``), ``bo.fetch`` and ``bo.heatmap``."""
     if mesh is not None and not fused:
         raise ValueError("bo_window_saliency: mesh= shards the fused loop; pass fused=True")
-    segments = np.asarray(segments, np.int32)
-    s = int(segments.max()) + 1
-    width = int(window_fraction * s)
-    upper = int(0.6 * s)  # reference firstIndex_upperbound (:467)
-    if target is None:
-        target, _ = engine.predict_one(image)
+    with trace.span("bo.call"):
+        segments = np.asarray(segments, np.int32)
+        s = int(segments.max()) + 1
+        width = int(window_fraction * s)
+        upper = int(0.6 * s)  # reference firstIndex_upperbound (:467)
+        if target is None:
+            target, _ = engine.predict_one(image)
 
-    if fused:
-        q = int(proposals_per_iter)
-        run = fused_runner(engine, next_pow2(upper + 1), cfg, q, mesh=mesh)
-        if draws is None:
-            draws = window_draws(torch.Generator().manual_seed(int(seed)), upper, run.max_obs)
-        xs, ys, survived, count = run(np.asarray(image, np.float32), segments, width, target,
-                                      upper, draws)
-        bo_res = _traces(xs[None], ys[None], survived[None], count)[0]
-    else:
+        if fused:
+            q = int(proposals_per_iter)
+            run = fused_runner(engine, next_pow2(upper + 1), cfg, q, mesh=mesh)
+            if draws is None:
+                with trace.span("bo.draws"):
+                    draws = window_draws(torch.Generator().manual_seed(int(seed)), upper,
+                                         run.max_obs)
+            xs, ys, survived, count = run(np.asarray(image, np.float32), segments, width, target,
+                                          upper, draws)
+            bo_res = _traces(xs[None], ys[None], survived[None], count)[0]
+        else:
 
-        def objective(indices: np.ndarray):
-            res = engine.eval_window_masks(image, segments, indices, width, target)
-            return res.prob_target, res.survived
+            def objective(indices: np.ndarray):
+                res = engine.eval_window_masks(image, segments, indices, width, target)
+                return res.prob_target, res.survived
 
-        bo_res = bayesian_optimize(
-            objective, upper=upper, n_pre_samples=cfg.n_pre_samples, n_iters=cfg.n_iters,
-            seed=seed, alpha=cfg.alpha, epsilon=cfg.epsilon,
-            lengthscale_grid=cfg.lengthscale_grid, device=engine.device)
+            bo_res = bayesian_optimize(
+                objective, upper=upper, n_pre_samples=cfg.n_pre_samples, n_iters=cfg.n_iters,
+                seed=seed, alpha=cfg.alpha, epsilon=cfg.epsilon,
+                lengthscale_grid=cfg.lengthscale_grid, device=engine.device)
 
-    return _assemble_output(segments, s, width, target, bo_res), bo_res
+        return _assemble_output(segments, s, width, target, bo_res), bo_res
 
 
 def _multi_geometry(segments_list, window_fraction: float):

@@ -33,6 +33,7 @@ from network_interpretation_imagenet_tpu_torch.device import resolve_device
 from network_interpretation_imagenet_tpu_torch.models import ModelBundle, inference_plan
 from network_interpretation_imagenet_tpu_torch.ops import masking
 from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 
 @dataclasses.dataclass
@@ -66,6 +67,14 @@ def outcomes(logits: torch.Tensor, target) -> torch.Tensor:
                         probs.max(dim=-1).values])
 
 
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """A tensor on any device as a numpy array: from the card, one
+    device-to-host copy that waits for the stream, traced as span
+    ``engine.fetch``."""
+    with trace.span("engine.fetch"):
+        return t.detach().cpu().numpy()
+
+
 class SaliencyEngine:
     """Masked forwards of one classifier, weights folded once on ``device``.
 
@@ -92,10 +101,15 @@ class SaliencyEngine:
 
     def _to_device(self, array, dtype) -> torch.Tensor:
         """A host array as numpy ``dtype``, or a tensor as the same torch
-        dtype, contiguous on the engine's device."""
-        if isinstance(array, torch.Tensor):
+        dtype, contiguous on the engine's device. A copy from host memory (a
+        synchronising one from pageable memory to the card) is traced as
+        span ``engine.upload``."""
+        if isinstance(array, torch.Tensor) and array.device.type != "cpu":
             return array.to(self.device, _TORCH_DTYPE[np.dtype(dtype)]).contiguous()
-        return torch.from_numpy(np.ascontiguousarray(array, dtype)).to(self.device)
+        with trace.span("engine.upload"):
+            if not isinstance(array, torch.Tensor):
+                array = torch.from_numpy(np.ascontiguousarray(array, dtype))
+            return array.to(self.device, _TORCH_DTYPE[np.dtype(dtype)]).contiguous()
 
     @torch.inference_mode()
     def folded_logits(self, variables, images: torch.Tensor) -> torch.Tensor:
@@ -116,7 +130,7 @@ class SaliencyEngine:
 
     def predict(self, images) -> np.ndarray:
         """Batched unmasked forward: NHWC f32 [B, H, W, C] -> f32 logits [B, classes]."""
-        return self.predict_logits_device(images).cpu().numpy()
+        return fetch(self.predict_logits_device(images))
 
     def predict_one(self, image) -> Tuple[int, np.ndarray]:
         logits = self.predict(np.asarray(image)[None])[0]
@@ -159,7 +173,7 @@ class SaliencyEngine:
             z = np.zeros(0)
             return MaskEvalResult(z.astype(bool), z.astype(np.int32),
                                   z.astype(np.float32), z.astype(np.float32))
-        out = torch.cat(handle, dim=1).cpu().numpy()
+        out = fetch(torch.cat(handle, dim=1))
         return MaskEvalResult(survived=out[0] > 0.5, preds=out[1].astype(np.int32),
                               prob_target=out[2].copy(), prob_max=out[3].copy())
 

@@ -14,6 +14,9 @@ i+1 on the host while they run, and reads image i's outcomes (the one
 device-to-host copy that waits) only after dispatching image i+1. The
 window masks of every chunk are built by B1 and every masked forward runs
 the engine's folded net, whose stride-1 Bottleneck stages are B2 chains.
+The streaming sweep's stages are spans of the tracer (``utils.logging``):
+``sweep.segment``, ``sweep.predict``, ``sweep.dispatch``, ``sweep.collect``
+and ``sweep.finish``, each with the image's index as its request id.
 
 The reference aborts the whole run on the first misclassified image
 (``bayesian_active_learning_imagenet.py:221``); the sweep skips and records
@@ -42,7 +45,7 @@ from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
 from network_interpretation_imagenet_tpu_torch.ops import aggregate, masking
 from network_interpretation_imagenet_tpu_torch.ops.preprocess import normalize as _normalize
 from network_interpretation_imagenet_tpu_torch.parallel.mesh import CollectiveError, mesh_size
-from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine, fetch
 from network_interpretation_imagenet_tpu_torch.saliency.pipeline import localization_score
 from network_interpretation_imagenet_tpu_torch.segment.common import (
     segment_image,
@@ -50,6 +53,7 @@ from network_interpretation_imagenet_tpu_torch.segment.common import (
     slic_batch_device,
     slic_postpass_host,
 )
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 from network_interpretation_imagenet_tpu_torch.utils.logging import PhaseLogger
 from network_interpretation_imagenet_tpu_torch.utils.meters import AverageMeter
 
@@ -81,8 +85,9 @@ class SweepResult:
 
 
 def _host(t) -> np.ndarray:
-    """A tensor on any device, or an array, as a numpy array."""
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    """A tensor on any device (copied by ``engine.fetch``), or an array, as a
+    numpy array."""
+    return fetch(t) if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _display(image: np.ndarray) -> np.ndarray:
@@ -332,12 +337,14 @@ def saliency_sweep(
         computed."""
         fl = inflight.popleft()
         try:
-            r = engine.collect(fl["handle"])
-            pred = int(_host(fl["logits"])[0].argmax())
+            with trace.span("sweep.collect", rid=fl["i"]):
+                r = engine.collect(fl["handle"])
+                pred = int(_host(fl["logits"])[0].argmax())
             if skip(fl["i"], pred, fl["label"]):
                 return
-            heat = aggregate_plan(fl["seg"], fl["plan"], r.survived)
-            finish_image(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
+            with trace.span("sweep.finish", rid=fl["i"]):
+                heat = aggregate_plan(fl["seg"], fl["plan"], r.survived)
+                finish_image(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
         except Exception as e:
             _fatal(e)
             res.images_failed += 1
@@ -454,7 +461,7 @@ def saliency_sweep(
                 if len(pending) >= image_batch:
                     flush_pending()
                 continue
-            with log.phase("segment", index=i):
+            with log.phase("segment", span="sweep.segment", rid=i, index=i):
                 seg = np.asarray(segment_image(disp, seg_cfg, engine.device), np.int32)
             s = int(seg.max()) + 1
             plan = sample_plan(seed + i, s)
@@ -479,13 +486,16 @@ def saliency_sweep(
             # Prediction, argmax (a device scalar, so the masked forwards
             # need no fetch) and masked forwards are all enqueued; the image
             # is collected one behind.
-            logits_dev = engine.predict_logits_device(image[None])
-            target_dev = torch.argmax(logits_dev[0])
-            if is_knockout:
-                handle = engine.eval_knockout_masks_async(image, seg, plan["ids"], target_dev)
-            else:
-                handle = engine.eval_window_masks_async(image, seg, plan["firsts"],
-                                                        plan["width"], target_dev)
+            with trace.span("sweep.predict", rid=i):
+                logits_dev = engine.predict_logits_device(image[None])
+                target_dev = torch.argmax(logits_dev[0])
+            with trace.span("sweep.dispatch", rid=i):
+                if is_knockout:
+                    handle = engine.eval_knockout_masks_async(image, seg, plan["ids"],
+                                                              target_dev)
+                else:
+                    handle = engine.eval_window_masks_async(image, seg, plan["firsts"],
+                                                            plan["width"], target_dev)
             inflight.append({"i": i, "label": label, "logits": logits_dev, "seg": seg, "s": s,
                              "plan": plan, "handle": handle, "t0": t0, "image": image})
             while len(inflight) > 1:

@@ -10,6 +10,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from network_interpretation_imagenet_tpu_torch.config import SegmentConfig
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 
 def relabel_sequential(labels: np.ndarray) -> np.ndarray:
@@ -32,19 +33,21 @@ def relabel_sequential(labels: np.ndarray) -> np.ndarray:
 def segment_image(img_u8: np.ndarray, cfg: SegmentConfig, device=None) -> np.ndarray:
     """uint8 [H, W, C] display image (``ops.preprocess.to_display_uint8``) ->
     int32[H, W] contiguous labels. SLIC runs on ``device`` (``None``: the
-    card); Felzenszwalb is host work."""
+    card); Felzenszwalb is host work. Traced as span ``segment``."""
     from network_interpretation_imagenet_tpu_torch.segment.felzenszwalb import felzenszwalb
 
-    if cfg.method == "slic":
-        return slic_postpass_host(slic_batch_device([img_u8], cfg, device).cpu().numpy(), cfg)[0]
-    if cfg.method != "felzenszwalb":
-        raise ValueError(f"unknown segmentation method {cfg.method}")
-    scale = cfg.scale
-    if scale is None:
-        # Area-adaptive default (see SegmentConfig.scale).
-        h, w = np.asarray(img_u8).shape[:2]
-        scale = max(1.0, 100.0 * (int(h) * int(w)) / (224.0 * 224.0))
-    return felzenszwalb(img_u8, scale=scale, sigma=cfg.sigma, min_size=cfg.min_size)
+    with trace.span("segment"):
+        if cfg.method == "slic":
+            return slic_postpass_host(slic_batch_device([img_u8], cfg, device).cpu().numpy(),
+                                      cfg)[0]
+        if cfg.method != "felzenszwalb":
+            raise ValueError(f"unknown segmentation method {cfg.method}")
+        scale = cfg.scale
+        if scale is None:
+            # Area-adaptive default (see SegmentConfig.scale).
+            h, w = np.asarray(img_u8).shape[:2]
+            scale = max(1.0, 100.0 * (int(h) * int(w)) / (224.0 * 224.0))
+        return felzenszwalb(img_u8, scale=scale, sigma=cfg.sigma, min_size=cfg.min_size)
 
 
 def segment_image_batch(displays, cfg: SegmentConfig, device=None) -> list:
