@@ -1,18 +1,25 @@
-// Felzenszwalb-Huttenlocher graph-based image segmentation.
+// Felzenszwalb-Huttenlocher graph-based image segmentation, and the host
+// passes of SLIC and XRAI.
 //
-// First-party native kernel replacing the reference's scikit-image call
-// (bayesian_active_learning_imagenet.py:150: felzenszwalb(img, scale=100,
-// sigma=0.5, min_size=50)). The algorithm (Felzenszwalb & Huttenlocher,
-// IJCV 2004) is inherently serial (sorted-edge union-find), so it lives on
-// the host as a C shared library bound via ctypes; the TPU path uses
-// segment/slic.py instead.
+// The port's own redesign of the JAX package's kernel, which replaced the
+// reference's scikit-image call (bayesian_active_learning_imagenet.py:150:
+// felzenszwalb(img, scale=100, sigma=0.5, min_size=50)). The algorithm
+// (Felzenszwalb & Huttenlocher, IJCV 2004) is a serial sorted-edge
+// union-find, so it stays on the host, bound via ctypes.
 //
-// Input: gaussian-pre-smoothed float32 image [H, W, C] in [0, 1] (smoothing
-// happens in Python so numpy and C++ paths share it bit-for-bit).
-// Output: int32 labels [H, W], contiguous 0..S-1 in raster first-occurrence
-// order. Returns the number of segments.
+// felzenszwalb_image is one pass from the image (uint8 or float32 [H, W, C])
+// to int32 labels [H, W], contiguous 0..S-1 in raster first-occurrence
+// order: the Gaussian pre-smoothing, the 8-connected edge weights, a stable
+// radix sort of 8-byte keys, and the union-find, once per (scale, min_size)
+// of a ladder. Its labels equal segment/felzenszwalb.py's numpy plain
+// version (scipy's smoothing, numpy's stable argsort) bit for bit, so every
+// float operation here keeps that version's order and precision; the
+// library is built with -ffp-contract=off so that nothing fuses them.
 //
-// Build: see native/Makefile (g++ -O3 -shared -fPIC).
+// A thread keeps its buffers between calls (Workspace, thread_local): they
+// grow to the largest image the thread has seen and are never freed, so a
+// call allocates and faults in no memory once its thread has seen an image
+// as large.
 
 #include <algorithm>
 #include <cmath>
@@ -22,12 +29,6 @@
 #include <vector>
 
 namespace {
-
-struct Edge {
-  float w;
-  int32_t a;
-  int32_t b;
-};
 
 // Disjoint-set forest with union by size and path compression.
 struct UnionFind {
@@ -63,123 +64,316 @@ struct UnionFind {
 
 namespace {
 
-// LSD radix sort of edges by weight, 4 passes of 8 bits over the float's
-// bit pattern. Edge weights are sqrt sums (>= 0, no NaN), and for
-// non-negative IEEE-754 floats bit-pattern order == value order; each
-// counting pass is stable, so the result is IDENTICAL to
-// std::stable_sort by w (ties keep emission order — the property the
-// numpy-backend bit-parity relies on) at ~4-5x the speed on the ~200k
-// edges of a 224^2 image (the sort dominates an FH run and the XRAI
-// ladder's shared prefix).
-void radix_sort_edges(std::vector<Edge>& edges) {
-  const size_t n = edges.size();
-  if (n < 2) return;
-  std::vector<Edge> tmp(n);
-  Edge* src = edges.data();
-  Edge* dst = tmp.data();
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = pass * 8;
-    size_t count[257] = {0};
-    for (size_t i = 0; i < n; ++i) {
-      uint32_t bits;
-      std::memcpy(&bits, &src[i].w, 4);
-      ++count[((bits >> shift) & 0xFFu) + 1];
+// One thread's buffers for felzenszwalb_image. Each grows to the largest
+// size asked of it and never shrinks; `grew` says whether a call grew any.
+struct Workspace {
+  std::vector<uint64_t> keys, spare;  // edge keys, the sort's second buffer
+  std::vector<int32_t> parent, size, remap;
+  std::vector<float> thr;       // per root: internal + scale / size
+  std::vector<float> image, smoothed;  // [h, w, c]: from uint8; smoothed
+  std::vector<double> acc, ext;  // a row's sums; a row reflected r pixels out
+  bool grew = false;
+
+  template <typename T>
+  T* fit(std::vector<T>& v, int64_t n) {
+    if (static_cast<int64_t>(v.size()) < n) {
+      v.resize(n);
+      grew = true;
     }
-    for (int b = 0; b < 256; ++b) count[b + 1] += count[b];
-    for (size_t i = 0; i < n; ++i) {
-      uint32_t bits;
-      std::memcpy(&bits, &src[i].w, 4);
-      dst[count[(bits >> shift) & 0xFFu]++] = src[i];
-    }
-    std::swap(src, dst);
+    return v.data();
   }
-  // 4 (even) passes: the final swap points src back at edges.data().
+};
+
+thread_local Workspace t_workspace;
+
+// scipy.ndimage's mode="reflect" (d c b a | a b c d | d c b a): period 2n,
+// so an index any distance outside [0, n) folds as often as it must.
+inline int64_t reflect(int64_t i, int64_t n) {
+  const int64_t period = 2 * n;
+  int64_t m = i % period;
+  if (m < 0) m += period;
+  return m < n ? m : period - 1 - m;
 }
 
-// 8-connectivity edges (right, down, down-right, down-left), sorted by
-// weight. The build + sort is the dominant cost of a run and
-// depends only on the (pre-smoothed) image — NOT on scale/min_size — so
-// the multi-scale ladder entry point below computes it once per image.
-std::vector<Edge> build_sorted_edges(const float* img, int32_t h, int32_t w,
-                                     int32_t c) {
-  const int64_t n = static_cast<int64_t>(h) * w;
-  std::vector<Edge> edges;
-  edges.reserve(n * 4);
-
-  auto color_dist = [&](int64_t p, int64_t q) -> float {
-    float acc = 0.f;
-    for (int32_t ch = 0; ch < c; ++ch) {
-      const float d = img[p * c + ch] - img[q * c + ch];
-      acc += d * d;
+// Gaussian smoothing of a float32 [h, w, c] image into `out`, as
+// scipy.ndimage.gaussian_filter(channel, sigma, output=float32,
+// mode="reflect") gives it channel by channel: axis 0, then axis 1, each by
+// NI_Correlate1D's symmetric form in float64 (the centre tap, then the
+// pairs from the farthest in), rounded to float32 after each axis.
+// taps[0..r] are _gaussian_kernel1d's centre and right half.
+void smooth(const float* in, int32_t h, int32_t w, int32_t c,
+            const double* taps, int32_t r, Workspace& ws, float* out) {
+  const int64_t wc = static_cast<int64_t>(w) * c;
+  double* acc = ws.fit(ws.acc, wc);
+  double* ext = ws.fit(ws.ext, (static_cast<int64_t>(w) + 2 * r) * c);
+  double* mid = ext + static_cast<int64_t>(r) * c;
+  for (int32_t y = 0; y < h; ++y) {
+    const float* row = in + y * wc;
+    for (int64_t i = 0; i < wc; ++i)
+      acc[i] = static_cast<double>(row[i]) * taps[0];
+    for (int32_t k = r; k >= 1; --k) {
+      const float* up = in + reflect(y - k, h) * wc;
+      const float* down = in + reflect(y + k, h) * wc;
+      for (int64_t i = 0; i < wc; ++i)
+        acc[i] += (static_cast<double>(up[i]) + static_cast<double>(down[i])) *
+                  taps[k];
     }
-    return std::sqrt(acc);
-  };
+    // Axis 0's row, rounded to float32 as scipy stores it between the axes,
+    // and reflected r pixels out either side for axis 1.
+    for (int64_t i = 0; i < wc; ++i) mid[i] = static_cast<float>(acc[i]);
+    for (int64_t x = 1; x <= r; ++x) {
+      for (int32_t ch = 0; ch < c; ++ch) {
+        mid[-x * c + ch] = mid[reflect(-x, w) * c + ch];
+        mid[(w - 1 + x) * c + ch] = mid[reflect(w - 1 + x, w) * c + ch];
+      }
+    }
+    for (int64_t i = 0; i < wc; ++i) acc[i] = mid[i] * taps[0];
+    for (int32_t k = r; k >= 1; --k) {
+      const double* left = mid - static_cast<int64_t>(k) * c;
+      const double* right = mid + static_cast<int64_t>(k) * c;
+      for (int64_t i = 0; i < wc; ++i) acc[i] += (left[i] + right[i]) * taps[k];
+    }
+    float* dst = out + y * wc;
+    for (int64_t i = 0; i < wc; ++i) dst[i] = static_cast<float>(acc[i]);
+  }
+}
 
+// The 8-connected edges as keys (weight bits << 32) | (p * 4 + d), emitted
+// in raster order of p, then d: right (0), down (1), down-right (2),
+// down-left (3). A weight sums the squared channel differences in float32 in
+// channel order, then takes the square root. kC > 0 fixes the channel count
+// at compile time (c == kC); 0 reads it from c. Returns the number of keys.
+template <int kC>
+int64_t build_keys(const float* s, int32_t h, int32_t w, int32_t c,
+                   uint64_t* keys) {
+  const int32_t channels = kC > 0 ? kC : c;
+  const int64_t wc = static_cast<int64_t>(w) * channels;
+  int64_t m = 0;
+  auto emit = [&](int64_t p, uint32_t d, const float* a, const float* b) {
+    float acc = 0.f;
+    for (int32_t ch = 0; ch < channels; ++ch) {
+      const float diff = a[ch] - b[ch];
+      acc += diff * diff;
+    }
+    const float wt = std::sqrt(acc);
+    uint32_t bits;
+    std::memcpy(&bits, &wt, 4);
+    keys[m++] = (static_cast<uint64_t>(bits) << 32) |
+                (static_cast<uint32_t>(p) * 4u + d);
+  };
   for (int32_t y = 0; y < h; ++y) {
     for (int32_t x = 0; x < w; ++x) {
       const int64_t p = static_cast<int64_t>(y) * w + x;
-      if (x + 1 < w)
-        edges.push_back({color_dist(p, p + 1), (int32_t)p, (int32_t)(p + 1)});
-      if (y + 1 < h)
-        edges.push_back({color_dist(p, p + w), (int32_t)p, (int32_t)(p + w)});
-      if (x + 1 < w && y + 1 < h)
-        edges.push_back(
-            {color_dist(p, p + w + 1), (int32_t)p, (int32_t)(p + w + 1)});
-      if (x > 0 && y + 1 < h)
-        edges.push_back(
-            {color_dist(p, p + w - 1), (int32_t)p, (int32_t)(p + w - 1)});
+      const float* a = s + p * channels;
+      if (x + 1 < w) emit(p, 0, a, a + channels);
+      if (y + 1 < h) {
+        emit(p, 1, a, a + wc);
+        if (x + 1 < w) emit(p, 2, a, a + wc + channels);
+        if (x > 0) emit(p, 3, a, a + wc - channels);
+      }
+    }
+  }
+  return m;
+}
+
+// Stable LSD radix sort of the keys by their weight bits alone (for
+// non-negative floats, bit order is value order). The digits cover only the
+// bits in which the weights differ: the sort runs on each weight's bits less
+// the smallest's, in as few passes of at most 11 bits as that span needs
+// (three for a 224^2 photo, none for a constant image). Every histogram
+// comes from one read, and a pass whose digit is the same in every key is
+// skipped. The keys were emitted in ascending (p, d), so equal weights keep
+// that order, as numpy's stable argsort keeps it. Returns the buffer that
+// holds the result: `keys` or `spare`.
+uint64_t* sort_keys(uint64_t* keys, uint64_t* spare, int64_t m) {
+  constexpr int kMaxBits = 11;
+  uint32_t lo = 0xFFFFFFFFu, hi = 0;
+  for (int64_t i = 0; i < m; ++i) {
+    const uint32_t bits = static_cast<uint32_t>(keys[i] >> 32);
+    lo = std::min(lo, bits);
+    hi = std::max(hi, bits);
+  }
+  int span = 0;
+  while (span < 32 && m > 0 && ((hi - lo) >> span) != 0) ++span;
+  if (span == 0) return keys;
+  const int passes = (span + kMaxBits - 1) / kMaxBits;
+  const int width = (span + passes - 1) / passes;
+  const uint32_t mask = (1u << width) - 1;
+  uint32_t hist[3][1 << kMaxBits] = {};
+  for (int64_t i = 0; i < m; ++i) {
+    const uint32_t d = static_cast<uint32_t>(keys[i] >> 32) - lo;
+    for (int pass = 0; pass < passes; ++pass)
+      ++hist[pass][(d >> (width * pass)) & mask];
+  }
+  uint64_t* src = keys;
+  uint64_t* dst = spare;
+  for (int pass = 0; pass < passes; ++pass) {
+    uint32_t* count = hist[pass];
+    const int shift = width * pass;
+    const uint32_t first =
+        ((static_cast<uint32_t>(src[0] >> 32) - lo) >> shift) & mask;
+    if (count[first] == static_cast<uint64_t>(m)) continue;
+    uint32_t start = 0;
+    for (uint32_t b = 0; b <= mask; ++b) {
+      const uint32_t n_b = count[b];
+      count[b] = start;
+      start += n_b;
+    }
+    for (int64_t i = 0; i < m; ++i) {
+      const uint64_t key = src[i];
+      const uint32_t d = static_cast<uint32_t>(key >> 32) - lo;
+      dst[count[(d >> shift) & mask]++] = key;
+    }
+    std::swap(src, dst);
+  }
+  return src;
+}
+
+inline int32_t find_root(int32_t* parent, int32_t x) {
+  while (parent[x] != x) {
+    parent[x] = parent[parent[x]];  // path halving; it never changes a root
+    x = parent[x];
+  }
+  return x;
+}
+
+// One (scale, min_size) segmentation over the sorted keys into `labels`.
+void segment_keys(const uint64_t* keys, int64_t m, int32_t w, int64_t n,
+                  float scale, int32_t min_size, Workspace& ws,
+                  int32_t* labels) {
+  int32_t* parent = ws.parent.data();
+  int32_t* size = ws.size.data();
+  float* thr = ws.thr.data();
+  // Each root caches its merge threshold internal(C) + scale / |C|, by the
+  // expression the plain version evaluates (internal 0 for one pixel).
+  const float thr_one = 0.f + scale / 1;
+  for (int64_t p = 0; p < n; ++p) {
+    parent[p] = static_cast<int32_t>(p);
+    size[p] = 1;
+    thr[p] = thr_one;
+  }
+  const int32_t step[4] = {1, w, w + 1, w - 1};
+
+  // Pass 1: merge when the weight is within both components' thresholds.
+  for (int64_t i = 0; i < m; ++i) {
+    const uint64_t key = keys[i];
+    const int32_t a = static_cast<int32_t>(static_cast<uint32_t>(key) >> 2);
+    int32_t ra = find_root(parent, a);
+    int32_t rb = find_root(parent, a + step[key & 3u]);
+    if (ra == rb) continue;
+    const uint32_t bits = static_cast<uint32_t>(key >> 32);
+    float wt;
+    std::memcpy(&wt, &bits, 4);
+    if (wt <= thr[ra] && wt <= thr[rb]) {
+      if (size[ra] < size[rb]) std::swap(ra, rb);
+      parent[rb] = ra;
+      size[ra] += size[rb];
+      thr[ra] = wt + scale / size[ra];  // sorted: wt is the new internal
     }
   }
 
-  radix_sort_edges(edges);
-  return edges;
-}
+  // Every pixel points at its root from here on.
+  for (int64_t p = 0; p < n; ++p)
+    parent[p] = find_root(parent, static_cast<int32_t>(p));
 
-// One (scale, min_size) segmentation over a pre-sorted edge list.
-int32_t segment_from_edges(const std::vector<Edge>& edges, int64_t n,
-                           float scale, int32_t min_size, int32_t* labels) {
-  UnionFind uf(static_cast<int32_t>(n));
-
-  // Pass 1: merge when the edge weight is below both components' adaptive
-  // thresholds internal(C) + scale/|C|.
-  for (const Edge& e : edges) {
-    const int32_t ra = uf.find(e.a);
-    const int32_t rb = uf.find(e.b);
-    if (ra == rb) continue;
-    const float ta = uf.internal[ra] + scale / uf.size[ra];
-    const float tb = uf.internal[rb] + scale / uf.size[rb];
-    if (e.w <= ta && e.w <= tb) uf.merge(ra, rb, e.w);
-  }
-
-  // Pass 2: absorb components smaller than min_size along sorted edges.
-  for (const Edge& e : edges) {
-    const int32_t ra = uf.find(e.a);
-    const int32_t rb = uf.find(e.b);
-    if (ra == rb) continue;
-    if (uf.size[ra] < min_size || uf.size[rb] < min_size) uf.merge(ra, rb, e.w);
+  // Pass 2: absorb components smaller than min_size along the sorted edges.
+  if (min_size > 1) {
+    for (int64_t i = 0; i < m; ++i) {
+      const uint64_t key = keys[i];
+      const int32_t a = static_cast<int32_t>(static_cast<uint32_t>(key) >> 2);
+      const int32_t b = a + step[key & 3u];
+      if (parent[a] == parent[b]) continue;  // flattened: one component
+      int32_t ra = find_root(parent, a);
+      int32_t rb = find_root(parent, b);
+      if (ra == rb || (size[ra] >= min_size && size[rb] >= min_size)) continue;
+      if (size[ra] < size[rb]) std::swap(ra, rb);
+      parent[rb] = ra;
+      size[ra] += size[rb];
+    }
   }
 
   // Relabel contiguous in raster first-occurrence order.
-  std::vector<int32_t> remap(n, -1);
+  int32_t* remap = ws.remap.data();
+  std::fill(remap, remap + n, -1);
   int32_t next = 0;
   for (int64_t p = 0; p < n; ++p) {
-    const int32_t root = uf.find(static_cast<int32_t>(p));
+    const int32_t root = find_root(parent, static_cast<int32_t>(p));
     if (remap[root] < 0) remap[root] = next++;
     labels[p] = remap[root];
   }
-  return next;
+}
+
+// The image as float32 [h, w, c], smoothed (r >= 0) or not: uint8 as
+// float32(x) / 255 (skimage's img_as_float, numpy's astype(float32) / 255.0),
+// float32 as it is.
+const float* prepare(const void* img, int32_t u8, int32_t h, int32_t w,
+                     int32_t c, const double* taps, int32_t r, Workspace& ws) {
+  const int64_t nc = static_cast<int64_t>(h) * w * c;
+  const float* in = static_cast<const float*>(img);
+  if (u8) {
+    float lut[256];
+    for (int v = 0; v < 256; ++v) lut[v] = static_cast<float>(v) / 255.0f;
+    const uint8_t* px = static_cast<const uint8_t*>(img);
+    float* f = ws.fit(ws.image, nc);
+    for (int64_t i = 0; i < nc; ++i) f[i] = lut[px[i]];
+    in = f;
+  }
+  if (r < 0) return in;
+  float* out = ws.fit(ws.smoothed, nc);
+  smooth(in, h, w, c, taps, r, ws, out);
+  return out;
+}
+
+// The keys' (p, d) takes 32 bits: fewer than 2^30 pixels.
+inline bool valid_shape(int32_t h, int32_t w, int32_t c) {
+  return h > 0 && w > 0 && c > 0 && static_cast<int64_t>(h) * w < (1LL << 30);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the number of segments written into `labels` (int32 [h*w]).
-int32_t felzenszwalb_segment(const float* img, int32_t h, int32_t w, int32_t c,
-                             float scale, int32_t min_size, int32_t* labels) {
+// Felzenszwalb over an [h, w, c] image, uint8 (u8 != 0) or float32, smoothed
+// by `taps` (see smooth; radius < 0: not smoothed), then segmented once per
+// (scales[s], min_sizes[s]) into labels int32 [n_scales, h*w]. The
+// smoothing, the keys and the sort are shared by the scales; each scale's
+// labels equal a one-scale call's. Returns 1 where the thread's workspace
+// grew, 0 where it was reused, -1 for a shape it cannot take.
+int32_t felzenszwalb_image(const void* img, int32_t u8, int32_t h, int32_t w,
+                           int32_t c, const double* taps, int32_t radius,
+                           const float* scales, const int32_t* min_sizes,
+                           int32_t n_scales, int32_t* labels) {
+  if (!valid_shape(h, w, c)) return -1;
+  Workspace& ws = t_workspace;
+  ws.grew = false;
   const int64_t n = static_cast<int64_t>(h) * w;
-  return segment_from_edges(build_sorted_edges(img, h, w, c), n, scale,
-                            min_size, labels);
+  uint64_t* keys = ws.fit(ws.keys, 4 * n);
+  uint64_t* spare = ws.fit(ws.spare, 4 * n);
+  ws.fit(ws.parent, n);
+  ws.fit(ws.size, n);
+  ws.fit(ws.thr, n);
+  ws.fit(ws.remap, n);
+  const float* smoothed = prepare(img, u8, h, w, c, taps, radius, ws);
+  const int64_t m = c == 3 ? build_keys<3>(smoothed, h, w, c, keys)
+                           : build_keys<0>(smoothed, h, w, c, keys);
+  const uint64_t* sorted = sort_keys(keys, spare, m);
+  for (int32_t s = 0; s < n_scales; ++s)
+    segment_keys(sorted, m, w, n, scales[s], min_sizes[s], ws,
+                 labels + static_cast<int64_t>(s) * n);
+  return ws.grew ? 1 : 0;
+}
+
+// felzenszwalb_image's smoothing alone, into float32 `out` [h, w, c] (the
+// tests hold it against scipy). Returns as felzenszwalb_image.
+int32_t felzenszwalb_smooth(const void* img, int32_t u8, int32_t h, int32_t w,
+                            int32_t c, const double* taps, int32_t radius,
+                            float* out) {
+  if (!valid_shape(h, w, c)) return -1;
+  Workspace& ws = t_workspace;
+  ws.grew = false;
+  const float* s = prepare(img, u8, h, w, c, taps, radius, ws);
+  std::copy(s, s + static_cast<int64_t>(h) * w * c, out);
+  return ws.grew ? 1 : 0;
 }
 
 // Connected components (4-connectivity) of an int32 label map: two pixels
@@ -375,22 +569,6 @@ int32_t slic_postpass(const int32_t* labels, int32_t h, int32_t w,
   }
   for (int64_t i = 0; i < n; ++i) out[i] = final_label[comp[i]];
   return rounds;
-}
-
-// Multi-scale ladder (XRAI's oversegmentation stack): edges built and
-// sorted ONCE, then one union-find pass per (scale, min_size). Bit-exact
-// with n_scales independent felzenszwalb_segment calls — the per-scale
-// result is a pure function of the sorted edge list. Writes labels as
-// int32 [n_scales, h*w] and per-scale segment counts into `counts`.
-void felzenszwalb_ladder(const float* img, int32_t h, int32_t w, int32_t c,
-                         const float* scales, const int32_t* min_sizes,
-                         int32_t n_scales, int32_t* labels, int32_t* counts) {
-  const int64_t n = static_cast<int64_t>(h) * w;
-  const std::vector<Edge> edges = build_sorted_edges(img, h, w, c);
-  for (int32_t s = 0; s < n_scales; ++s) {
-    counts[s] = segment_from_edges(edges, n, scales[s], min_sizes[s],
-                                   labels + static_cast<int64_t>(s) * n);
-  }
 }
 
 // XRAI greedy region ranking (saliency/xrai.py greedy_region_ranking's

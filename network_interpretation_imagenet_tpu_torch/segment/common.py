@@ -33,10 +33,15 @@ def relabel_sequential(labels: np.ndarray) -> np.ndarray:
 def segment_image(img_u8: np.ndarray, cfg: SegmentConfig, device=None) -> np.ndarray:
     """uint8 [H, W, C] display image (``ops.preprocess.to_display_uint8``) ->
     int32[H, W] contiguous labels. SLIC runs on ``device`` (``None``: the
-    card); Felzenszwalb is host work. Traced as span ``segment``."""
-    from network_interpretation_imagenet_tpu_torch.segment.felzenszwalb import felzenszwalb
+    card); Felzenszwalb is host work. Traced as span ``segment``; for
+    Felzenszwalb its attribute ``workspace`` says whether the native kernel
+    reused the calling thread's buffers (``"reused"``) or grew them
+    (``"grown"``)."""
+    from network_interpretation_imagenet_tpu_torch.segment.felzenszwalb import (
+        felzenszwalb_native,
+    )
 
-    with trace.span("segment"):
+    with trace.span("segment") as open_span:
         if cfg.method == "slic":
             return slic_postpass_host(slic_batch_device([img_u8], cfg, device).cpu().numpy(),
                                       cfg)[0]
@@ -47,16 +52,19 @@ def segment_image(img_u8: np.ndarray, cfg: SegmentConfig, device=None) -> np.nda
             # Area-adaptive default (see SegmentConfig.scale).
             h, w = np.asarray(img_u8).shape[:2]
             scale = max(1.0, 100.0 * (int(h) * int(w)) / (224.0 * 224.0))
-        return felzenszwalb(img_u8, scale=scale, sigma=cfg.sigma, min_size=cfg.min_size)
+        (labels,), workspace = felzenszwalb_native(img_u8, [scale], cfg.sigma, [cfg.min_size])
+        if open_span is not None:
+            open_span.annotate(workspace=workspace)
+        return labels
 
 
 def segment_image_batch(displays, cfg: SegmentConfig, device=None) -> list:
     """Segment N display images; a list of int32[H, W] label maps equal to
     per-image :func:`segment_image` calls. SLIC runs the N k-means as one
     batch on ``device`` (``None``: the card); its displays may be a uint8
-    [N, H, W(, C)] tensor already there. Felzenszwalb's hot path (scipy's
-    smoothing and the native kernel) releases the GIL, so the images fan out
-    over a thread pool of up to 8 workers."""
+    [N, H, W(, C)] tensor already there. Felzenszwalb's native kernel
+    releases the GIL, so the images fan out over a thread pool of up to 8
+    workers, each with its own workspace."""
     if cfg.method == "slic" and len(displays):
         return slic_postpass_host(slic_batch_device(displays, cfg, device).cpu().numpy(), cfg)
     displays = list(displays)

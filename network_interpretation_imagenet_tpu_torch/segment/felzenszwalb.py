@@ -3,12 +3,14 @@
 Port of ``segment/felzenszwalb.py`` of the JAX package: ``felzenszwalb``,
 XRAI's multi-scale ``felzenszwalb_ladder``, and the native helpers of SLIC's
 connectivity pass (``label_components``, ``slic_postpass_native``). The
-serial union-find is host work: ``native/felzenszwalb.cc`` (the JAX
-package's source, unchanged) is compiled with ``g++`` at first use into
-``_build/`` and loaded with ctypes. A failed build raises; the numpy
-implementation runs only when asked for (``backend="numpy"``) and is the
-plain version the tests hold the native one against. Gaussian pre-smoothing
-happens here (scipy) so both consume identical inputs.
+serial union-find is host work: ``native/felzenszwalb.cc``, the port's own
+redesign of the JAX package's kernel, is compiled with ``g++`` at first use
+into ``_build/`` and loaded with ctypes. It runs one pass from the image to
+the labels (smoothing, edges, sort, union-find) over buffers each thread
+keeps between calls. A failed build raises; the numpy implementation (scipy's
+smoothing, then ``_felzenszwalb_numpy``) runs only when asked for
+(``backend="numpy"``) and is the yardstick the tests hold the native kernel
+to, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "native", "felzenszwalb.cc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # No -march=native: _build/ may be copied to another machine with the
-# checkout, and a library tuned to one CPU can fault on another.
-_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+# checkout, and a library tuned to one CPU can fault on another. No
+# contraction: a fused multiply-add would round the smoothing and the edge
+# weights otherwise than scipy and numpy do.
+_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-ffp-contract=off")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -53,22 +57,19 @@ def _load_native() -> ctypes.CDLL:
                 raise RuntimeError(f"building {_SOURCE} failed:\n{proc.stderr[-4000:]}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
-        lib.felzenszwalb_segment.restype = ctypes.c_int32
-        lib.felzenszwalb_segment.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_float, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32),
-        ]
         i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+        f64p, i32 = ctypes.POINTER(ctypes.c_double), ctypes.c_int32
+        lib.felzenszwalb_image.restype = i32
+        lib.felzenszwalb_image.argtypes = [ctypes.c_void_p, i32, i32, i32, i32, f64p, i32,
+                                           f32p, i32p, i32, i32p]
+        lib.felzenszwalb_smooth.restype = i32
+        lib.felzenszwalb_smooth.argtypes = [ctypes.c_void_p, i32, i32, i32, i32, f64p, i32,
+                                            f32p]
         lib.label_components.restype = ctypes.c_int32
         lib.label_components.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, i32p]
         lib.slic_postpass.restype = ctypes.c_int32
         lib.slic_postpass.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
                                       i32p]
-        lib.felzenszwalb_ladder.restype = None
-        lib.felzenszwalb_ladder.argtypes = [f32p, ctypes.c_int32, ctypes.c_int32,
-                                            ctypes.c_int32, f32p, i32p, ctypes.c_int32,
-                                            i32p, i32p]
         lib.xrai_greedy_rank.restype = ctypes.c_int32
         lib.xrai_greedy_rank.argtypes = [ctypes.POINTER(ctypes.c_double), i32p,
                                          ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f32p]
@@ -164,6 +165,80 @@ def _felzenszwalb_numpy(img: np.ndarray, scale: float, min_size: int) -> np.ndar
     return relabel_sequential(roots.reshape(h, w))
 
 
+def _gaussian_taps(sigma):
+    """The centre and right half (float64 [r + 1]) of the taps that
+    ``scipy.ndimage.gaussian_filter(x, sigma)`` smooths with: its
+    ``_gaussian_kernel1d`` at ``truncate=4.0``, by the same numpy
+    expressions. Empty where it leaves the image as it is."""
+    if not float(sigma) > 1e-15:
+        return np.empty(0, np.float64)
+    radius = int(4.0 * float(sigma) + 0.5)
+    sigma2 = sigma * sigma
+    x = np.arange(-radius, radius + 1)
+    phi_x = np.exp(-0.5 / sigma2 * x ** 2)
+    phi_x = phi_x / phi_x.sum()
+    return np.ascontiguousarray(phi_x[radius:])
+
+
+def _native_image(image: np.ndarray):
+    """``image`` as the native kernel reads it: a C-contiguous [H, W, C]
+    array, uint8 as it is and anything else as float32, and whether it is
+    uint8."""
+    img = np.asarray(image)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or 0 in img.shape or img.shape[0] * img.shape[1] >= 1 << 30:
+        raise ValueError(f"felzenszwalb takes a non-empty [H, W] or [H, W, C] image of "
+                         f"fewer than 2^30 pixels, not shape {np.shape(image)}")
+    u8 = img.dtype == np.uint8
+    return np.ascontiguousarray(img, np.uint8 if u8 else np.float32), u8
+
+
+def felzenszwalb_native(image: np.ndarray, scales, sigma: float, min_sizes):
+    """The native kernel over ``image`` (as :func:`felzenszwalb` takes it):
+    one int32[H, W] label map per (scale, min_size), each equal to the numpy
+    plain version's, and what the calling thread's workspace did for the
+    call, ``"grown"`` or ``"reused"``."""
+    img, u8 = _native_image(image)
+    h, w, c = img.shape
+    taps = _gaussian_taps(sigma)
+    scales = np.ascontiguousarray(scales, np.float32)
+    min_sizes = np.ascontiguousarray(min_sizes, np.int32)
+    labels = np.empty((len(scales), h, w), np.int32)
+    grew = _load_native().felzenszwalb_image(
+        img.ctypes.data, int(u8), h, w, c, _ptr(taps, ctypes.c_double), len(taps) - 1,
+        _ptr(scales, ctypes.c_float), _ptr(min_sizes, ctypes.c_int32), len(scales),
+        _ptr(labels, ctypes.c_int32))
+    if grew < 0:
+        raise RuntimeError(f"felzenszwalb_image refused shape {img.shape}")
+    return list(labels), "grown" if grew else "reused"
+
+
+def smooth_native(image: np.ndarray, sigma: float) -> np.ndarray:
+    """The native kernel's Gaussian pre-smoothing alone: float32 [H, W, C],
+    bit for bit :func:`_smooth` of ``image`` scaled as :func:`felzenszwalb`
+    scales it."""
+    img, u8 = _native_image(image)
+    taps = _gaussian_taps(sigma)
+    out = np.empty(img.shape, np.float32)
+    if _load_native().felzenszwalb_smooth(img.ctypes.data, int(u8), *img.shape,
+                                          _ptr(taps, ctypes.c_double), len(taps) - 1,
+                                          _ptr(out, ctypes.c_float)) < 0:
+        raise RuntimeError(f"felzenszwalb_smooth refused shape {img.shape}")
+    return out
+
+
+def _smoothed(image: np.ndarray, sigma: float) -> np.ndarray:
+    """The numpy plain version's input: float32 [H, W, C], uint8 scaled to
+    [0, 1] (``img_as_float``, as the reference), smoothed by scipy."""
+    img = np.asarray(image)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    return _smooth(img.astype(np.float32), sigma)
+
+
 def felzenszwalb(image: np.ndarray, scale: float = 100.0, sigma: float = 0.5,
                  min_size: int = 50, backend: str = "native") -> np.ndarray:
     """Segment an image; returns int32[H, W] contiguous labels.
@@ -171,26 +246,11 @@ def felzenszwalb(image: np.ndarray, scale: float = 100.0, sigma: float = 0.5,
     ``image``: uint8 or float [H, W] / [H, W, C]; uint8 scales to [0, 1]
     (``img_as_float``, as the reference). ``backend``: ``"native"`` (C++)
     or ``"numpy"`` (the plain version)."""
-    img = np.asarray(image)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.dtype == np.uint8:
-        img = img.astype(np.float32) / 255.0
-    img = _smooth(img.astype(np.float32), sigma)
-    if backend == "numpy":
-        return _felzenszwalb_numpy(img, scale, min_size)
-    if backend != "native":
+    if backend == "native":
+        return felzenszwalb_native(image, [scale], sigma, [min_size])[0][0]
+    if backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}")
-    lib = _load_native()
-    h, w, c = img.shape
-    img_c = np.ascontiguousarray(img, np.float32)
-    out = np.empty(h * w, np.int32)
-    lib.felzenszwalb_segment(
-        img_c.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w, c,
-        ctypes.c_float(scale), ctypes.c_int32(min_size),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-    )
-    return out.reshape(h, w)
+    return _felzenszwalb_numpy(_smoothed(image, sigma), scale, min_size)
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -238,26 +298,12 @@ def felzenszwalb_ladder(image: np.ndarray, scales, sigma: float = 0.5, min_sizes
         raise ValueError(f"min_sizes length {len(min_sizes)} != scales {len(scales)}")
     if not scales:
         return []
-    img = np.asarray(image)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.dtype == np.uint8:
-        img = img.astype(np.float32) / 255.0
-    img = _smooth(img.astype(np.float32), sigma)
     if backend == "numpy":
+        img = _smoothed(image, sigma)
         return [_felzenszwalb_numpy(img, s, m) for s, m in zip(scales, min_sizes)]
     if backend != "native":
         raise ValueError(f"unknown backend {backend!r}")
-    lib = _load_native()
-    h, w, c = img.shape
-    n_s = len(scales)
-    labels = np.empty(n_s * h * w, np.int32)
-    counts = np.empty(n_s, np.int32)
-    lib.felzenszwalb_ladder(_ptr(np.ascontiguousarray(img, np.float32), ctypes.c_float),
-                            h, w, c, _ptr(np.asarray(scales, np.float32), ctypes.c_float),
-                            _ptr(np.asarray(min_sizes, np.int32), ctypes.c_int32), n_s,
-                            _ptr(labels, ctypes.c_int32), _ptr(counts, ctypes.c_int32))
-    return [labels[i * h * w:(i + 1) * h * w].reshape(h, w) for i in range(n_s)]
+    return felzenszwalb_native(image, scales, sigma, min_sizes)[0]
 
 
 def xrai_greedy_rank_native(attr: np.ndarray, ids: np.ndarray, min_area: int):

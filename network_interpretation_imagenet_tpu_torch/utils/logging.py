@@ -82,6 +82,10 @@ class _Open:
         self.start_ns = time.time_ns()
         return self
 
+    def annotate(self, **attrs) -> None:
+        """Adds ``attrs`` to the span, for a result known only inside it."""
+        self.attrs.update(attrs)
+
     def __exit__(self, *exc):
         end_ns = time.time_ns()
         if self.rf is not None:
@@ -108,7 +112,9 @@ class Tracer:
 
     def span(self, name: str, rid=None, **attrs):
         """A context manager recording one span named ``name``, with request
-        id ``rid`` (None: inherited) and small ``attrs``."""
+        id ``rid`` (None: inherited) and small ``attrs``. It enters as the
+        open span (see ``_Open.annotate``), or as None while nothing
+        records."""
         if not (self.on or _autograd_profiler._is_profiler_enabled):
             return _OFF
         return _Open(self, name, rid, attrs)
