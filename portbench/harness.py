@@ -54,7 +54,7 @@ class Context:
     clock's times, the device trace and the spans."""
 
     def __init__(self, cell: Cell, trace: DeviceTrace, spans: Spans) -> None:
-        self.cfg, self.traffic = cell.config, cell.traffic
+        self.cfg, self.traffic, self.net = cell.config, cell.traffic, cell.net
         self.trace, self.spans = trace, spans
         self.setup_s = 0.0
         self.window_s = 0.0
@@ -69,15 +69,26 @@ class Context:
         return self.trace.enabled and bool(self.trace.kernels)
 
     def flops(self) -> float:
-        per_image = costs.forward_flops(self.cfg)
+        """The forward operations of the finished work, by the family's
+        ``forward_flops``."""
+        per_image = self.net.forward_flops(self.cfg)
         return per_image * sum(b * n for b, n in self.forwards.items())
 
-    def b2_bound_ms(self) -> float:
-        return sum(costs.b2_bound_ms(self.cfg["chains"], b) * n for b, n in self.forwards.items())
+    def peak_flops(self) -> float:
+        """The card's peak in the config's dtype."""
+        return costs.PEAK_FLOPS[self.cfg["dtype"]]
+
+    def b2_bound_ms(self) -> Optional[float]:
+        """The chain bounds of the finished work in the config's dtype;
+        None for a config with no B2 ``chains``."""
+        if "chains" not in self.cfg:
+            return None
+        return sum(costs.b2_bound_ms(self.cfg["chains"], b, self.cfg["dtype"]) * n
+                   for b, n in self.forwards.items())
 
     def b1_bound_ms(self) -> float:
-        r = self.cfg["resolution"]
-        return sum(costs.b1_bound_ms(r, r, 3, k) * n for k, n in self.b1_calls.items())
+        r, itemsize = self.cfg["resolution"], costs.ITEMSIZE[self.cfg["dtype"]]
+        return sum(costs.b1_bound_ms(r, r, 3, k, itemsize) * n for k, n in self.b1_calls.items())
 
 
 def _window_counts(ctx: Context, images: int, k: int, mask_batch: int) -> None:
@@ -92,13 +103,13 @@ def _window_counts(ctx: Context, images: int, k: int, mask_batch: int) -> None:
         ctx.b1_calls[c] = ctx.b1_calls.get(c, 0) + images
 
 
-def _window_check(cfg, traffic, seeds, pool, boxes, state, picks, device, control: bool,
+def _window_check(net, cfg, traffic, seeds, pool, boxes, state, picks, device, control: bool,
                   notes: List[str]) -> dict:
     """The reference's readings on the sampled images. ``picks``: per image,
     the program's row, heatmap and outcomes. The reference segments the image,
-    draws its window starts and runs the f32 net on the image and on every
-    mask; the program's answers (and, with ``control``, the fp8 net's in
-    their place) are held against it:
+    draws its window starts and runs the f32 net of the family ``net`` on
+    the image and on every mask; the program's answers (and, with
+    ``control``, the fp8 net's in their place) are held against it:
 
     - ``segments_heatmap_mismatch``: images whose segment count differs, or
       whose heatmap differs from the one the reference sums from its own
@@ -120,8 +131,8 @@ def _window_check(cfg, traffic, seeds, pool, boxes, state, picks, device, contro
     notes the program's images that an exact number fails."""
     k, frac, thr = traffic["masks_per_image"], traffic["window_fraction"], traffic["bbox_threshold"]
     chunk = int(traffic["check_batch"])
-    net = ref.PlainResNet(cfg, state)
-    ctl = ref.PlainResNet(cfg, state, quantize="fp8") if control else None
+    plain = net.Plain(cfg, state)
+    ctl = net.Plain(cfg, state, quantize="fp8") if control else None
     worst = {"program": _blank(), **({"control": _blank()} if control else {})}
     for row, heat, outs in picks:
         i = row["index"]
@@ -142,7 +153,7 @@ def _window_check(cfg, traffic, seeds, pool, boxes, state, picks, device, contro
                       for o in range(0, k, chunk)]
             return model(img_t[None])[0].double().cpu(), torch.cat(masked).double().cpu()
 
-        ref0, ref_m = logits(net)
+        ref0, ref_m = logits(plain)
         log_sm = torch.log_softmax(ref_m, dim=1).numpy()
         spread = ref_m.std(dim=1).numpy()
         answers = {"program": (int(row["target"]), np.asarray(outs.preds, np.int64),
@@ -188,11 +199,19 @@ def _blank() -> dict:
 _SPAN_OF = {"segment_image": "segment", "localization_score": "localize"}
 
 
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 class _Port:
-    """The program under test, built for one run: the engine on the
-    harness's weights, with the harness's spans around its calls."""
+    """The program under test, built for one run: the model and the engine
+    in the config's ``dtype`` on the harness's weights, with the harness's
+    spans around its calls."""
 
     def __init__(self, cfg, traffic, state, dev, spans: Spans, engine_hook) -> None:
+        dtype = DTYPES.get(cfg.get("dtype"))
+        if dtype is None:
+            raise ValueError(f"configuration {cfg.get('name')!r} states dtype "
+                             f"{cfg.get('dtype')!r}; the engine runs {sorted(DTYPES)}")
         from network_interpretation_imagenet_tpu_torch.config import BOConfig, SegmentConfig
         from network_interpretation_imagenet_tpu_torch.models import create_model
         from network_interpretation_imagenet_tpu_torch.saliency import bo_pipeline, pipeline
@@ -202,9 +221,9 @@ class _Port:
         from network_interpretation_imagenet_tpu_torch.ops.preprocess import to_display_uint8
 
         self.bundle = create_model(cfg["arch"], "imagenet", num_classes=cfg["num_classes"],
-                                   dtype=torch.bfloat16)
+                                   dtype=dtype)
         self.engine = SaliencyEngine(self.bundle, state, mask_batch=int(traffic["mask_batch"]),
-                                     compute_dtype=torch.bfloat16, device=dev)
+                                     compute_dtype=dtype, device=dev)
         if engine_hook is not None:
             engine_hook(self.engine)
         self.collected: list = []
@@ -351,13 +370,14 @@ class BORequests:
         return self.attempted, self.failed, self.failed == 0, n, [self.done[j] for j in pick]
 
 
-def _bo_check(cfg, traffic, seeds, pool, boxes, state, picks, device, control: bool,
+def _bo_check(net, cfg, traffic, seeds, pool, boxes, state, picks, device, control: bool,
               notes: List[str]) -> dict:
     """The reference's readings on the sampled requests. For each, the
     reference segments the image, draws the loop's random starts, runs the
-    f32 net on the image and on the window of every start the program
-    evaluated, and refits the GP in float64 before each step after the
-    pre-samples, on the program's observations so far. Numbers:
+    f32 net of the family ``net`` on the image and on the window of every
+    start the program evaluated, and refits the GP in float64 before each
+    step after the pre-samples, on the program's observations so far.
+    Numbers:
 
     - ``segments_heatmap_mismatch``, ``iou_mismatch``: as in the window
       cells, over the trace's starts and survive outcomes;
@@ -386,8 +406,8 @@ def _bo_check(cfg, traffic, seeds, pool, boxes, state, picks, device, control: b
     n_pre, n_iters = int(bo["n_pre_samples"]), int(bo["n_iters"])
     grid, alpha, eps = bo["lengthscale_grid"], float(bo["alpha"]), float(bo["epsilon"])
     frac, thr = traffic["window_fraction"], traffic["bbox_threshold"]
-    net = ref.PlainResNet(cfg, state)
-    ctl = ref.PlainResNet(cfg, state, quantize="fp8") if control else None
+    plain = net.Plain(cfg, state)
+    ctl = net.Plain(cfg, state, quantize="fp8") if control else None
     worst = {"program": _bo_blank()}
     if control:
         worst.update(control=_bo_blank(), proposals_drawn=_bo_blank())
@@ -423,12 +443,12 @@ def _bo_check(cfg, traffic, seeds, pool, boxes, state, picks, device, control: b
             heat = ref.summed_heatmap(seg, xs.astype(np.int64), width, surv)
             return target, xs, ys, surv, heat, s, ref.localization_iou(heat, gt, thr)
 
-        ref0 = net(img_t[None])[0].double().cpu()
+        ref0 = plain(img_t[None])[0].double().cpu()
         answers = {"program": (d["target"], d["xp"], d["yp"], d["survived"], d["heat"],
                                d["num_segments"], d["iou"])}
         if control:
             answers["control"] = own_loop(ctl, "ei")
-            answers["proposals_drawn"] = own_loop(net, "draw")
+            answers["proposals_drawn"] = own_loop(plain, "draw")
         for side, (target, xp, yp, surv, heat, got_s, got_iou) in answers.items():
             nums = worst[side]
             xp_f = np.asarray(xp, np.float64)
@@ -450,7 +470,7 @@ def _bo_check(cfg, traffic, seeds, pool, boxes, state, picks, device, control: b
                         notes.append(f"check: request {i} step {t} took {xp_f[t]:g} after "
                                      f"{xp_i[:t].tolist()} (score spread {np.std(yp_f[:t]):.3g}), "
                                      "not GP-EI's choice")
-            lg = masked_logits(net, xp_i)
+            lg = masked_logits(plain, xp_i)
             top2 = torch.topk(lg, 2, dim=1).values
             at_target = lg[:, target]
             ref_surv = (lg.argmax(dim=1) == target).numpy()
@@ -517,13 +537,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         notes.append("set-up compiled " + ", ".join(f"{n} ({t:.1f} s)" for n, t in built.items())
                      + ": a checkout's first run, whose setup_s is not a warm one")
     with stages("weights"):
-        state = ref.make_weights(cfg, seeds["weights"], dev)
+        state = ref.make_weights(cell.net, cfg, seeds["weights"], dev)
     n_cal, n_warm = int(traffic["calibration_images"]), int(traffic["warm_images"])
     with stages("images"):
         images, boxes = make_pool(n_cal + n_warm + int(traffic["pool_images"]),
                                   cfg["resolution"], seeds["pool"], dev)
     with stages("calibration"):
-        ref.calibrate(cfg, state, torch.from_numpy(images[:n_cal]).to(dev))
+        ref.calibrate(cell.net, cfg, state, torch.from_numpy(images[:n_cal]).to(dev))
     with stages("engine"):
         port = _Port(cfg, traffic, state, dev, spans, engine_hook)
     driver = drivers[traffic["kind"]](port, traffic, seeds, spans)
@@ -562,7 +582,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     check = _window_check if traffic["kind"] == "window_sweep" else _bo_check
-    readings = check(cfg, traffic, seeds, pool, pool_boxes, state, picks, dev, control, notes)
+    readings = check(cell.net, cfg, traffic, seeds, pool, pool_boxes, state, picks, dev, control,
+                     notes)
     check_s = time.perf_counter() - t_check
 
     verdicts = {side: _within(nums, cell.limits) for side, nums in readings.items()}

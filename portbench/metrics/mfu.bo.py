@@ -1,3 +1,3 @@
-"""mfu.bo: the finished work's forward operations over the traced window, as a share of the bf16 peak."""
+"""mfu.bo: the finished work's forward operations over the traced window, as a share of the peak in the config's dtype."""
 
 from portbench.readers import mfu as read  # noqa: F401

@@ -8,8 +8,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from portbench.costs import H100_BF16_FLOPS
-
 
 def setup_s(ctx):
     """Seconds from the process's start to the first timed request."""
@@ -37,24 +35,27 @@ def device_idle(ctx):
 
 def mfu(ctx):
     """The forward operations the finished work needed (convolutions and
-    head from the config's layer shapes, every forward of every image),
-    over the traced window's wall time, as a share of the dense bf16 peak."""
-    return 100.0 * ctx.flops() / ctx.trace.window_s / H100_BF16_FLOPS if ctx.traced else None
+    head from the family's ``forward_flops``, every forward of every image),
+    over the traced window's wall time, as a share of the card's dense peak
+    in the config's dtype."""
+    return 100.0 * ctx.flops() / ctx.trace.window_s / ctx.peak_flops() if ctx.traced else None
 
 
 def b2_roofline(ctx):
     """The chain bounds of every forward the finished work needed (each
-    stage's stride-1 chain at that forward's batch) over the union of the
-    device intervals of kernels whose symbol starts with ``b2_``."""
+    stage's stride-1 chain at that forward's batch, in the config's dtype)
+    over the union of the device intervals of kernels whose symbol starts
+    with ``b2_``; None for a config with no ``chains``."""
     busy = ctx.trace.union_ms("b2") if ctx.traced else 0.0
-    return 100.0 * ctx.b2_bound_ms() / busy if busy > 0 else None
+    bound = ctx.b2_bound_ms()
+    return 100.0 * bound / busy if busy > 0 and bound is not None else None
 
 
 def b1_roofline(ctx):
     """The bytes bound of every B1 call the finished work needed (image,
-    segments and starts read once, masked images written once) over the
-    union of the device intervals of kernels whose symbol starts with
-    ``b1_``."""
+    segments and starts read once, masked images written once in the
+    config's dtype) over the union of the device intervals of kernels whose
+    symbol starts with ``b1_``."""
     busy = ctx.trace.union_ms("b1") if ctx.traced else 0.0
     return 100.0 * ctx.b1_bound_ms() / busy if busy > 0 else None
 

@@ -7,8 +7,10 @@ harness made, it works out again everything the program derives from them:
   port's numpy implementation, with the union-find written over Python lists);
 - the window starts of each image (numpy's ``RandomState``, the sampler the
   port's sweep documents);
-- the classifier's logits: a torchvision-layout Bottleneck ResNet written with
-  ``F.conv2d`` and eval-mode BatchNorm, in f32 with TF32 off;
+- the classifier's logits: the config's family of nets, each in a module
+  of its own under ``portbench/nets/`` (found by ``spec.net``), written with
+  ``F.conv2d`` and eval-mode BatchNorm on :class:`PlainNet`, in f32 with
+  TF32 off;
 - the survive outcomes, the summed-label heatmap and the bbox / IOU row.
 
 ``quantize="fp8"`` computes the same net in float8 e4m3 (per-tensor scales):
@@ -19,7 +21,7 @@ bf16 that the configurations state.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,57 +34,25 @@ FP8_MAX = 448.0   # largest finite float8 e4m3fn
 
 
 # ---------------------------------------------------------------------------
-# The network: torchvision's Bottleneck ResNet (v1.5: stride on the 3x3).
+# The network: the config's family (``portbench/nets/<net>.py``, found by
+# ``spec.net``) gives the shapes, the head's keys, the residual branches'
+# last BatchNorms and a :class:`PlainNet`; the weights, the calibration and
+# the fp8 rounding are the same for every family.
 
-def block_specs(stage_sizes: Sequence[int], base_width: int) -> List[Tuple[str, int, int, int, int, bool]]:
-    """(prefix, inplanes, width, out, stride, downsample) of every block."""
-    specs, inplanes = [], 64
-    for s, n in enumerate(stage_sizes):
-        planes = 64 * 2 ** s
-        width, out = int(planes * (base_width / 64.0)), planes * 4
-        for b in range(n):
-            stride = 2 if s > 0 and b == 0 else 1
-            specs.append((f"layer{s + 1}.{b}", inplanes, width, out, stride,
-                          stride != 1 or inplanes != out))
-            inplanes = out
-    return specs
-
-
-def state_shapes(cfg: dict) -> Dict[str, tuple]:
-    """Every tensor of the config's state dict under torchvision's key names."""
-    shapes: Dict[str, tuple] = {"conv1.weight": (64, 3, 7, 7)}
-
-    def bn(name, c):
-        for k in ("weight", "bias", "running_mean", "running_var"):
-            shapes[f"{name}.{k}"] = (c,)
-
-    bn("bn1", 64)
-    for p, cin, width, out, _, ds in block_specs(cfg["stage_sizes"], cfg["base_width"]):
-        shapes[f"{p}.conv1.weight"] = (width, cin, 1, 1)
-        bn(f"{p}.bn1", width)
-        shapes[f"{p}.conv2.weight"] = (width, width, 3, 3)
-        bn(f"{p}.bn2", width)
-        shapes[f"{p}.conv3.weight"] = (out, width, 1, 1)
-        bn(f"{p}.bn3", out)
-        if ds:
-            shapes[f"{p}.downsample.0.weight"] = (out, cin, 1, 1)
-            bn(f"{p}.downsample.1", out)
-    final = block_specs(cfg["stage_sizes"], cfg["base_width"])[-1][3]
-    shapes["fc.weight"] = (cfg["num_classes"], final)
-    shapes["fc.bias"] = (cfg["num_classes"],)
-    return shapes
-
-
-def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Seeded f32 weights on ``device`` from one generator in one draw: He
-    normal convolutions, BatchNorm scales 1 + 0.1 n and shifts 0.1 n, a head of
-    std ``head_gain``/sqrt(fan-in). The last BatchNorm of each residual branch
+def make_weights(net, cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Seeded f32 weights on ``device`` for the family module ``net``, from
+    one generator in one draw over ``net.state_shapes(cfg)`` in its order:
+    He normal convolutions, BatchNorm scales 1 + 0.1 n and shifts 0.1 n, a
+    head (``net.HEAD``: weight, bias) of std ``head_gain``/sqrt(fan-in). The
+    last BatchNorm of each residual branch (``net.residual_bn_keys(cfg)``)
     has its scale times ``residual_scale`` (the config's ``init``), as a
     trained net's are small: with scale 1 a deep BatchNorm net is chaotic,
     and an ulp at the input moves its logits by a tenth of their spread.
     Running statistics are set by :func:`calibrate`."""
     init = cfg["init"]
-    shapes = state_shapes(cfg)
+    shapes = net.state_shapes(cfg)
+    head_weight, head_bias = net.HEAD
+    residual = net.residual_bn_keys(cfg)
     sizes = [int(np.prod(s)) for s in shapes.values()]
     g = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.randn(sum(sizes), generator=g, device=device, dtype=torch.float32)
@@ -94,13 +64,13 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
             t = torch.zeros(shape, device=device)
         elif name.endswith("running_var"):
             t = torch.ones(shape, device=device)
-        elif name == "fc.weight":
+        elif name == head_weight:
             t = t * (init["head_gain"] / np.sqrt(shape[1]))
-        elif name == "fc.bias":
+        elif name == head_bias:
             t = t * 0.01
         elif len(shape) == 4:
             t = t * np.sqrt(2.0 / np.prod(shape[1:]))
-        elif name.endswith("bn3.weight"):
+        elif name in residual:
             t = init["residual_scale"] * (1.0 + 0.1 * t)
         elif name.endswith(".weight"):
             t = 1.0 + 0.1 * t
@@ -116,8 +86,11 @@ def _fp8(t: torch.Tensor) -> torch.Tensor:
     return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
-class PlainResNet:
-    """The f32 forward of a state dict: NHWC normalized images -> f32 logits.
+class PlainNet:
+    """The f32 forward of a state dict, NHWC normalized images -> f32
+    logits, with TF32 off. A family subclasses it and writes ``forward``
+    (NCHW f32 -> logits) from :meth:`conv_bn` and :meth:`linear`, passing
+    every other activation it makes through ``self.q``.
 
     ``quantize="fp8"`` rounds every weight and every activation between
     operations to float8 e4m3 (the control). With ``calibrating`` set (see
@@ -129,35 +102,33 @@ class PlainResNet:
             raise ValueError(f"unknown quantize {quantize!r}")
         self.cfg, self.state = cfg, state
         self.q = _fp8 if quantize == "fp8" else (lambda t: t)
-        self.specs = block_specs(cfg["stage_sizes"], cfg["base_width"])
         self.calibrating = False
 
-    def _conv_bn(self, x, conv, bn, stride=1, padding=0):
-        x = self.q(F.conv2d(x, self.q(self.state[conv + ".weight"]), None, stride, padding))
+    def conv_bn(self, x, conv, bn, stride=1, padding=0, groups=1, eps=BN_EPS):
+        """The bias-free convolution ``conv`` (a key prefix), then the
+        eval-mode BatchNorm ``bn``."""
+        x = self.q(F.conv2d(x, self.q(self.state[conv + ".weight"]), None, stride, padding, 1,
+                            groups))
         s = self.state
         if self.calibrating:
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             s[bn + ".running_mean"].copy_(mean)
             s[bn + ".running_var"].copy_(var)
-        scale = s[bn + ".weight"] / torch.sqrt(s[bn + ".running_var"] + BN_EPS)
+        scale = s[bn + ".weight"] / torch.sqrt(s[bn + ".running_var"] + eps)
         shift = s[bn + ".bias"] - s[bn + ".running_mean"] * scale
         return self.q(x * scale[None, :, None, None] + shift[None, :, None, None])
 
+    def linear(self, x, weight: str, bias: str):
+        """The head: pooled features times the weight, plus the bias."""
+        return x @ self.q(self.state[weight]).t() + self.state[bias]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
     @torch.no_grad()
     def __call__(self, images_nhwc: torch.Tensor) -> torch.Tensor:
-        q = self.q
         with _no_tf32():
-            x = q(images_nhwc.float().permute(0, 3, 1, 2).contiguous())
-            x = F.max_pool2d(torch.relu(self._conv_bn(x, "conv1", "bn1", 2, 3)), 3, 2, 1)
-            for p, _, _, _, stride, ds in self.specs:
-                y = torch.relu(self._conv_bn(x, f"{p}.conv1", f"{p}.bn1"))
-                y = torch.relu(self._conv_bn(y, f"{p}.conv2", f"{p}.bn2", stride, 1))
-                y = self._conv_bn(y, f"{p}.conv3", f"{p}.bn3")
-                if ds:
-                    x = self._conv_bn(x, f"{p}.downsample.0", f"{p}.downsample.1", stride)
-                x = q(torch.relu(y + x))
-            feat = q(x.mean(dim=(2, 3)))
-            return feat @ q(self.state["fc.weight"]).t() + self.state["fc.bias"]
+            return self.forward(self.q(images_nhwc.float().permute(0, 3, 1, 2).contiguous()))
 
 
 class _no_tf32:
@@ -172,19 +143,20 @@ class _no_tf32:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
-def calibrate(cfg: dict, state: Dict[str, torch.Tensor], images_nhwc: torch.Tensor) -> None:
+def calibrate(net, cfg: dict, state: Dict[str, torch.Tensor], images_nhwc: torch.Tensor) -> None:
     """Set every BatchNorm's running statistics to its batch statistics on
-    ``images_nhwc`` (one f32 forward), so that the logits are not saturated,
-    then shift the head's bias so that each class's mean logit over those
-    images is 0: the pooled features are non-negative, and without the shift
-    their common part makes the same few classes win on every image. The
-    first step is frozen from ``chip_smoke.py:1993`` (``calibrated_state_dict``),
-    which does it through the program's module in training mode."""
-    net = PlainResNet(cfg, state)
-    net.calibrating = True
-    net(images_nhwc)
-    net.calibrating = False
-    state["fc.bias"] -= net(images_nhwc).mean(dim=0)
+    ``images_nhwc`` (one f32 forward of the family ``net``'s ``Plain``), so
+    that the logits are not saturated, then shift the head's bias so that
+    each class's mean logit over those images is 0: the pooled features are
+    non-negative, and without the shift their common part makes the same few
+    classes win on every image. The first step is frozen from
+    ``chip_smoke.py:1993`` (``calibrated_state_dict``), which does it
+    through the program's module in training mode."""
+    plain = net.Plain(cfg, state)
+    plain.calibrating = True
+    plain(images_nhwc)
+    plain.calibrating = False
+    state[net.HEAD[1]] -= plain(images_nhwc).mean(dim=0)
 
 
 # ---------------------------------------------------------------------------

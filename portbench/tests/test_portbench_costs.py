@@ -1,12 +1,15 @@
-"""The harness's operation and byte counts against hand counts."""
+"""The harness's operation and byte counts against hand counts, and the
+ResNet family's forward operations pinned to what they read before the
+family moved to ``portbench/nets/bottleneck_resnet.py``."""
 
 import pytest
 
 from portbench import costs
-from portbench.spec import load_json, ROOT
+from portbench.spec import load_json, net, ROOT
 
 RESNET101 = load_json(f"{ROOT}/portbench/configs/resnet101-224-bf16.json")
 WIDE50 = load_json(f"{ROOT}/portbench/configs/wide_resnet50_2-224-bf16.json")
+RESNET = net(RESNET101)
 
 
 def hand_flops(blocks, width_mult):
@@ -27,14 +30,39 @@ def hand_flops(blocks, width_mult):
 
 
 def test_forward_flops_resnet101():
-    assert costs.forward_flops(RESNET101) == hand_flops((3, 4, 23, 3), 1)
+    assert RESNET.forward_flops(RESNET101) == hand_flops((3, 4, 23, 3), 1)
     # 15.60 GFLOP: convolutions and head only (bench.py's 15.66 counts more)
-    assert round(costs.forward_flops(RESNET101) / 1e9, 2) == 15.60
+    assert round(RESNET.forward_flops(RESNET101) / 1e9, 2) == 15.60
 
 
 def test_forward_flops_wide_resnet50_2():
-    assert costs.forward_flops(WIDE50) == hand_flops((3, 4, 6, 3), 2)
-    assert round(costs.forward_flops(WIDE50) / 1e9, 1) == 22.8
+    assert RESNET.forward_flops(WIDE50) == hand_flops((3, 4, 6, 3), 2)
+    assert round(RESNET.forward_flops(WIDE50) / 1e9, 1) == 22.8
+
+
+@pytest.mark.parametrize("config, flops", [("resnet101-224-bf16", 15_602_810_880),
+                                           ("wide_resnet50_2-224-bf16", 22_796_042_240)])
+def test_forward_flops_pinned(config, flops):
+    cfg = load_json(f"{ROOT}/portbench/configs/{config}.json")
+    assert "net" not in cfg and net(cfg).__name__ == "portbench_net_bottleneck_resnet"
+    assert net(cfg).forward_flops(cfg) == flops
+
+
+def test_float32_bounds():
+    """The f32 instance's chains: 4-byte activations and weights against
+    the CUDA cores' 67 TFLOP/s; B1 writes 4-byte masked images."""
+    flops, nbytes = costs.b2_costs(14, 1024, 256, 22, 256, itemsize=4)
+    bf16 = costs.b2_costs(14, 1024, 256, 22, 256)
+    m = 256 * 14 * 14
+    assert flops == bf16[0]
+    assert nbytes == m * 1024 * 2 * 4 + 22 * ((1024 * 256 * 2 + 9 * 256 * 256) * 4
+                                              + (256 + 256 + 1024) * 4)
+    want = sum(max(f / 67e12, b / 3.35e12) * 1e3 for f, b in (
+        costs.b2_costs(h, c, p, n, 256, 4) for h, c, p, n in RESNET101["chains"]))
+    assert costs.b2_bound_ms(RESNET101["chains"], 256, "float32") == pytest.approx(want)
+    assert costs.b2_bound_ms(RESNET101["chains"], 256, "float32") == pytest.approx(48.393, abs=5e-4)
+    assert costs.b1_bound_ms(224, 224, 3, 256, 4) == pytest.approx(
+        costs.b1_bytes(224, 224, 3, 256, 4) / 3.35e12 * 1e3)
 
 
 def test_b2_costs_stage3_at_256():

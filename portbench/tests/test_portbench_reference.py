@@ -1,15 +1,19 @@
 """The plain reference against the port's CPU path at small sizes, so that
 the comparison code runs here. The port is imported by these tests only."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from portbench import reference as ref
+from portbench.spec import ROOT, load_json, net
 from portbench.traffic import make_pool
 
 TINY = {"name": "tiny", "arch": "resnet50", "stage_sizes": [3, 4, 6, 3], "base_width": 64,
         "num_classes": 10, "resolution": 64, "init": {"residual_scale": 0.2, "head_gain": 8.0}}
+RESNET = net(TINY)
 
 
 @pytest.fixture(scope="module")
@@ -19,8 +23,8 @@ def pool():
 
 @pytest.fixture(scope="module")
 def state(pool):
-    s = ref.make_weights(TINY, 5, "cpu")
-    ref.calibrate(TINY, s, torch.from_numpy(pool[0][:4]))
+    s = ref.make_weights(RESNET, TINY, 5, "cpu")
+    ref.calibrate(RESNET, TINY, s, torch.from_numpy(pool[0][:4]))
     return s
 
 
@@ -34,10 +38,43 @@ def test_pool_is_the_seeds(pool):
 
 
 def test_weights_are_the_seeds():
-    a, b = ref.make_weights(TINY, 5, "cpu"), ref.make_weights(TINY, 5, "cpu")
+    a, b = ref.make_weights(RESNET, TINY, 5, "cpu"), ref.make_weights(RESNET, TINY, 5, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
-    c = ref.make_weights(TINY, 6, "cpu")
+    c = ref.make_weights(RESNET, TINY, 6, "cpu")
     assert not torch.equal(a["conv1.weight"], c["conv1.weight"])
+
+
+# The two configs' full-size weights from seed 2**31 + 5, as they read before
+# the family moved to ``portbench/nets/bottleneck_resnet.py``: the count and
+# order of the keys (sha256 of the keys joined by newlines), every tensor's
+# bytes in that order (sha256), and the f64 sum and sum of squares of all.
+WEIGHTS = {
+    "resnet101-224-bf16": (
+        522, "9c722028624e2922940a109e573135c314b643bf4cdde0ca81dfdf59253ad579",
+        "50a0e16444564bbad29ba36b0dfef489177d1bce57600341542cddae4f0de043",
+        78978.04713641669, 1778698.9946529712),
+    "wide_resnet50_2-224-bf16": (
+        267, "ec98463d02daea9e8194bb4c42abcb7668efbb6329f6a17b8d67ae8085bd11c2",
+        "7c93488fba72173b0e817f92574f7a37f5092d2aa717617d7fed4de14847dd34",
+        56824.17523614549, 1718466.7545709275),
+}
+
+
+@pytest.mark.parametrize("config", sorted(WEIGHTS))
+def test_full_size_weights_are_pinned(config):
+    cfg = load_json(f"{ROOT}/portbench/configs/{config}.json")
+    state = ref.make_weights(net(cfg), cfg, 2 ** 31 + 5, "cpu")
+    count, keys, data, total, squares = WEIGHTS[config]
+    assert len(state) == count
+    assert hashlib.sha256("\n".join(state).encode()).hexdigest() == keys
+    h, s, sq = hashlib.sha256(), 0.0, 0.0
+    for t in state.values():
+        a = t.numpy()
+        h.update(a.tobytes())
+        s += float(a.astype(np.float64).sum())
+        sq += float((a.astype(np.float64) ** 2).sum())
+    assert h.hexdigest() == data
+    assert s == pytest.approx(total, rel=1e-12) and sq == pytest.approx(squares, rel=1e-12)
 
 
 def test_plain_net_matches_the_port_in_f32(pool, state):
@@ -48,9 +85,9 @@ def test_plain_net_matches_the_port_in_f32(pool, state):
     engine = SaliencyEngine(bundle, state, mask_batch=4, compute_dtype=torch.float32, device="cpu")
     images = pool[0][4:6]
     got = engine.predict_logits_device(images)
-    want = ref.PlainResNet(TINY, state)(torch.from_numpy(images))
+    want = RESNET.Plain(TINY, state)(torch.from_numpy(images))
     assert float((got - want).abs().max()) < 1e-3 * float(want.abs().max())
-    fp8 = ref.PlainResNet(TINY, state, quantize="fp8")(torch.from_numpy(images))
+    fp8 = RESNET.Plain(TINY, state, quantize="fp8")(torch.from_numpy(images))
     assert float((fp8 - want).abs().max()) > 1e-2 * float(want.abs().max())
 
 
@@ -110,8 +147,8 @@ def test_the_bo_loops_choices_are_gp_ei_choices():
 
     cfg = dict(TINY, resolution=112)
     images, _ = make_pool(10, 112, 5, "cpu")
-    state = ref.make_weights(cfg, 3, "cpu")
-    ref.calibrate(cfg, state, torch.from_numpy(images[:6]))
+    state = ref.make_weights(RESNET, cfg, 3, "cpu")
+    ref.calibrate(RESNET, cfg, state, torch.from_numpy(images[:6]))
     engine = SaliencyEngine(create_model("resnet50", "imagenet", num_classes=10), state,
                             mask_batch=16, compute_dtype=torch.bfloat16, device="cpu")
     bo = BOConfig()

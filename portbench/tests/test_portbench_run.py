@@ -2,8 +2,10 @@
 skipped; a window of 0 seconds hands over one image): the result line, the
 check passing on the program, and the cell's own limits failing the fp8
 control, the BO loop without GP-EI and faults planted where the answers are
-produced. Then the import isolation and the refusal without a card."""
+produced; a family of nets and a dtype that the configs in the repository
+do not use. Then the import isolation and the refusal without a card."""
 
+import contextlib
 import json
 import os
 import shutil
@@ -24,6 +26,12 @@ from portbench import harness, spec
 # that takes its draws 0.69-1.00; its limit is the ResNet-101 BO cell's.
 TINY_LIMIT = 0.25
 SEEDS = (1, 3, 2 ** 31 + 8)        # program 0.074, 0.068, 0.053; control 0.77, 0.89, 1.82
+# Their rel_logit_err (program, control) as they read before the ResNet
+# family moved to ``portbench/nets/``, with four torch threads: the CPU's
+# convolutions sum in an order that follows the thread count.
+PINNED = {1: (0.0743562718142291, 0.7700179180162853),
+          3: (0.06812194563820746, 0.887333958751234),
+          2 ** 31 + 8: (0.0526726103187498, 1.8198722017731475)}
 TINY_BO_LIMIT = 0.25
 TINY_EI_LIMIT = 0.17
 BO_SEEDS = (1, 3, 2 ** 31 + 7)     # program 0.085, 0.059, 0.054; control 1.19, 1.03, 0.92
@@ -32,7 +40,9 @@ BO_SEEDS = (1, 3, 2 ** 31 + 7)     # program 0.085, 0.059, 0.054; control 1.19, 
 @pytest.fixture(scope="module")
 def tiny_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("tiny")
-    shutil.copytree(os.path.join(spec.ROOT, "portbench", "metrics"), root / "portbench" / "metrics")
+    for sub in ("metrics", "nets"):
+        shutil.copytree(os.path.join(spec.ROOT, "portbench", sub), root / "portbench" / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for sub in ("configs", "traffic", "limits"):
         (root / "portbench" / sub).mkdir()
     cfg = spec.load_json(os.path.join(spec.ROOT, "portbench/configs/resnet101-224-bf16.json"))
@@ -103,11 +113,26 @@ def test_result_line(tiny_root):
     json.dumps(line)
 
 
+@contextlib.contextmanager
+def torch_threads(n):
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_the_fp8_control_fails(tiny_root, seed):
-    out = tiny_run(tiny_root, seed=seed, control=True)
+    with torch_threads(4):
+        out = tiny_run(tiny_root, seed=seed, control=True)
     assert out["line"]["correct"] is True, out["checks"]
     assert out["verdicts"] == {"program": True, "control": False}, out["readings"]
+    r = out["readings"]
+    assert (r["program"]["rel_logit_err"], r["control"]["rel_logit_err"]) == PINNED[seed]
 
 
 def _alter_answer(engine):
@@ -208,6 +233,225 @@ def test_ei_of_the_wrong_sign_fails_the_check(tiny_root, monkeypatch):
     assert out["readings"]["program"]["rel_logit_err"] <= TINY_BO_LIMIT
 
 
+# A family of another architecture, added by files alone: MobileNet-v2 at
+# 64^2 (depthwise convolutions, ReLU6, the head ``classifier.1``, no B2
+# chains), which the port runs through its module plan. Its limit, from
+# whole runs of one image on the CPU over seeds 1-8 and 2**31 + 7 to
+# 2**31 + 10: the program read rel_logit_err 0.108-0.278, the fp8 control
+# 1.19-3.54; lower^0.4 * upper^0.6, rounded up.
+MOBILENET_LIMIT = 0.67
+MOBILENET_SEEDS = (1, 6, 2 ** 31 + 7)  # program 0.176, 0.278, 0.224; control 1.22, 3.54, 2.74
+MOBILENET_V2 = '''"""MobileNet-v2 (torchvision's keys, as the port's ``models/mobilenet.py``
+loads them): a stem, 17 inverted residuals of depthwise 3x3 convolutions
+and ReLU6, a 1x1 to 1,280 and the head ``classifier.1``."""
+
+from portbench import costs, reference as ref
+
+SETTINGS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2), (6, 96, 3, 1),
+            (6, 160, 3, 2), (6, 320, 1, 1))
+HEAD = ("classifier.1.weight", "classifier.1.bias")
+
+
+def blocks():
+    """(index, in, hidden, out, stride, expands, residual) of each block."""
+    out, i, cin = [], 1, 32
+    for t, c, n, s in SETTINGS:
+        for b in range(n):
+            stride = s if b == 0 else 1
+            out.append((i, cin, cin * t, c, stride, t != 1, stride == 1 and cin == c))
+            i, cin = i + 1, c
+    return out
+
+
+def state_shapes(cfg):
+    shapes = {}
+
+    def conv_bn(conv, bn, cout, cin_per_group, k):
+        shapes[conv + ".weight"] = (cout, cin_per_group, k, k)
+        for key in ("weight", "bias", "running_mean", "running_var"):
+            shapes[f"{bn}.{key}"] = (cout,)
+
+    conv_bn("features.0.0", "features.0.1", 32, 3, 3)
+    for i, cin, hidden, cout, _, expands, _ in blocks():
+        p, j = f"features.{i}.conv", 0
+        if expands:
+            conv_bn(f"{p}.0.0", f"{p}.0.1", hidden, cin, 1)
+            j = 1
+        conv_bn(f"{p}.{j}.0", f"{p}.{j}.1", hidden, 1, 3)
+        conv_bn(f"{p}.{j + 1}", f"{p}.{j + 2}", cout, hidden, 1)
+    conv_bn("features.18.0", "features.18.1", 1280, 320, 1)
+    shapes[HEAD[0]] = (cfg["num_classes"], 1280)
+    shapes[HEAD[1]] = (cfg["num_classes"],)
+    return shapes
+
+
+def residual_bn_keys(cfg):
+    return {f"features.{i}.conv.{3 if expands else 2}.weight"
+            for i, _, _, _, _, expands, residual in blocks() if residual}
+
+
+class Plain(ref.PlainNet):
+    def forward(self, x):
+        q = self.q
+        x = q(self.conv_bn(x, "features.0.0", "features.0.1", 2, 1).clamp(0, 6))
+        for i, _, hidden, _, stride, expands, residual in blocks():
+            p, j, y = f"features.{i}.conv", 0, x
+            if expands:
+                y = q(self.conv_bn(y, f"{p}.0.0", f"{p}.0.1").clamp(0, 6))
+                j = 1
+            y = q(self.conv_bn(y, f"{p}.{j}.0", f"{p}.{j}.1", stride, 1, hidden).clamp(0, 6))
+            y = self.conv_bn(y, f"{p}.{j + 1}", f"{p}.{j + 2}")
+            x = q(x + y) if residual else y
+        x = q(self.conv_bn(x, "features.18.0", "features.18.1").clamp(0, 6))
+        return self.linear(q(x.mean(dim=(2, 3))), *HEAD)
+
+
+def forward_flops(cfg):
+    h = costs.conv_out(cfg["resolution"], 3, 2, 1)
+    flops = 2.0 * 3 * 32 * 9 * h * h
+    for _, cin, hidden, cout, stride, expands, _ in blocks():
+        if expands:
+            flops += 2.0 * cin * hidden * h * h
+        h = costs.conv_out(h, 3, stride, 1)
+        flops += 2.0 * hidden * 9 * h * h + 2.0 * hidden * cout * h * h
+    return flops + 2.0 * 320 * 1280 * h * h + 2.0 * 1280 * cfg["num_classes"]
+'''
+
+
+@pytest.fixture(scope="module")
+def mobilenet_root(tiny_root, tmp_path_factory):
+    """A fresh checkout of the tiny cells with a net module, a config naming
+    it, a limits file and a cell ``m.tiny`` on the tiny window mix, and no
+    file of the harness edited."""
+    root = tmp_path_factory.mktemp("mobilenet") / "root"
+    shutil.copytree(tiny_root, root)
+    (root / "portbench/nets/mobilenet_v2.py").write_text(MOBILENET_V2)
+    cfg = {"name": "mobilenet_v2-64-bf16", "net": "mobilenet_v2", "arch": "mobilenet_v2",
+           "num_classes": 10, "resolution": 64, "dtype": "bfloat16",
+           "init": {"residual_scale": 0.2, "head_gain": 8.0}, "reduced": []}
+    (root / "portbench/configs/mobilenet_v2-64-bf16.json").write_text(json.dumps(cfg))
+    (root / "portbench/limits/m.tiny.json").write_text(json.dumps({"limits": {
+        "segments_heatmap_mismatch": 0, "iou_mismatch": 0, "outcome_mismatch": 0,
+        "rel_logit_err": MOBILENET_LIMIT}}))
+    bench = spec.load_json(str(root / "BENCHMARK.json"))
+    bench["configs"].append({"name": cfg["name"], "source": "https://arxiv.org/abs/1801.04381",
+                             "file": "portbench/configs/mobilenet_v2-64-bf16.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "m.tiny", "config": cfg["name"], "traffic": "tiny",
+                               "chips": 1, "why": "test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "t.tiny" in m.get("workloads", ()):
+            m["workloads"].append("m.tiny")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return str(root)
+
+
+class HalfB2Trace(harness.DeviceTrace):
+    """A device trace on the CPU: the window's wall time, its first half
+    under a ``b2_`` kernel, its second under a ``b1_`` one."""
+
+    def __init__(self, enabled):
+        super().__init__(True)
+
+    @contextlib.contextmanager
+    def __call__(self):
+        self.t0 = time.time_ns()
+        yield self
+        self.t1 = time.time_ns()
+        mid = (self.t0 + self.t1) // 2
+        self.kernels = [("b2_conv_wgmma", self.t0, mid), ("b1_masked_batch", mid, self.t1)]
+
+
+def test_a_net_of_another_family_added_by_files(mobilenet_root, monkeypatch):
+    """The cell comes out correct, ``mfu.window`` reads the module's own
+    ``forward_flops`` (which counts what the port's module computes), and
+    ``b2_roofline.window`` reads nothing for a config with no chains."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+
+    cell = spec.Cell("m.tiny", root=mobilenet_root)
+    assert cell.net.__name__ == "portbench_net_mobilenet_v2"
+    flops = cell.net.forward_flops(cell.config)
+    counted = []
+
+    def count(m, _, out):
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+            counted.append(2 * out.numel() * k)
+        elif isinstance(m, torch.nn.Linear):
+            counted.append(2 * out.numel() * m.in_features)
+
+    module = create_model("mobilenet_v2", "imagenet", num_classes=10).module.eval()
+    for m in module.modules():
+        m.register_forward_hook(count)
+    with torch.no_grad():
+        module(torch.zeros(1, 64, 64, 3))
+    assert flops == sum(counted) == 48_922_624
+
+    monkeypatch.setattr(harness, "DeviceTrace", HalfB2Trace)
+    out = harness.run(cell, MOBILENET_SEEDS[0], 0.0, True, time.perf_counter(), device="cpu")
+    line = out["line"]
+    assert line["correct"] is True, out["checks"]
+    assert line["checks"]["rel_logit_err"]["limit"] == MOBILENET_LIMIT
+    metrics, window_s = line["metrics"], line["device"]["window_s"]
+    forwards = 1 + 2 * 8 + 4   # the prediction, then 20 masks in calls of 8
+    assert metrics["mfu.window"]["value"] == pytest.approx(
+        100 * forwards * flops / window_s / harness.costs.H100_BF16_FLOPS)
+    assert "b2_roofline.window" not in metrics and "b1_roofline.window" in metrics
+
+
+@pytest.mark.parametrize("seed", MOBILENET_SEEDS)
+def test_the_other_familys_fp8_control_fails(mobilenet_root, seed):
+    out = tiny_run(mobilenet_root, seed=seed, cell="m.tiny", control=True)
+    assert out["line"]["correct"] is True, out["checks"]
+    assert out["verdicts"] == {"program": True, "control": False}, out["readings"]
+
+
+def test_the_other_familys_altered_answer_fails(mobilenet_root):
+    out = tiny_run(mobilenet_root, seed=MOBILENET_SEEDS[0], cell="m.tiny",
+                   engine_hook=_alter_answer)
+    assert out["line"]["correct"] is False
+    assert out["readings"]["program"]["rel_logit_err"] > MOBILENET_LIMIT
+
+
+def _with_dtype(tiny_root, tmp_path, dtype):
+    root = tmp_path / "root"
+    shutil.copytree(tiny_root, root)
+    path = root / "portbench/configs/tiny.json"
+    path.write_text(json.dumps(dict(spec.load_json(str(path)), dtype=dtype)))
+    return str(root)
+
+
+def test_a_float32_config_runs_in_float32(tiny_root, tmp_path):
+    """The model and the engine take the config's dtype, and the bounds and
+    the peak follow it: the f32 B2 instance's chain costs, 4-byte masked
+    images, the CUDA cores' f32 peak."""
+    import torch
+
+    root = _with_dtype(tiny_root, tmp_path, "float32")
+    seen = []
+    out = tiny_run(root, seed=SEEDS[0],
+                   engine_hook=lambda e: seen.append((e.compute_dtype, e.bundle.dtype)))
+    assert seen == [(torch.float32, torch.float32)]
+    assert out["line"]["correct"] is True, out["checks"]
+    cell = spec.Cell("t.tiny", root=root)
+    ctx = harness.Context(cell, harness.DeviceTrace(False), harness.Spans())
+    harness._window_counts(ctx, images=1, k=20, mask_batch=8)
+    assert ctx.peak_flops() == harness.costs.H100_F32_FLOPS
+    assert ctx.b2_bound_ms() == pytest.approx(sum(
+        harness.costs.b2_bound_ms(cell.config["chains"], b, "float32") * n
+        for b, n in ctx.forwards.items()))
+    assert ctx.b1_bound_ms() == pytest.approx(sum(
+        harness.costs.b1_bytes(64, 64, 3, k, 4) / 3.35e12 * 1e3 * n
+        for k, n in ctx.b1_calls.items()))
+
+
+def test_an_unknown_dtype_is_refused(tiny_root, tmp_path):
+    with pytest.raises(ValueError, match="float16"):
+        tiny_run(_with_dtype(tiny_root, tmp_path, "float16"), seed=SEEDS[0])
+
+
 def test_bo_counts(tiny_root):
     cell = spec.Cell("t.bo", root=tiny_root)
     ctx = harness.Context(cell, harness.DeviceTrace(False), harness.Spans())
@@ -228,7 +472,7 @@ def test_window_counts_and_readers(tiny_root):
     harness._window_counts(ctx, images=3, k=20, mask_batch=8)
     assert ctx.evals == 60 and ctx.forwards == {1: 3, 8: 6, 4: 3} and ctx.b1_calls == {8: 6, 4: 3}
     flops = spec.load_json(os.path.join(tiny_root, "portbench/configs/tiny.json"))
-    assert ctx.flops() == pytest.approx(63 * harness.costs.forward_flops(flops))
+    assert ctx.flops() == pytest.approx(63 * cell.net.forward_flops(flops))
     ctx.trace.kernels = [("void (anonymous namespace)::b2_conv_wgmma<64>(x)", 0, 2_000_000),
                          ("void (anonymous namespace)::b2_conv_wgmma<64>(x)", 1_000_000, 3_000_000),
                          ("b1_masked_batch", 3_000_000, 3_500_000),
@@ -254,8 +498,14 @@ def _isolated(code):
 
 
 def test_harness_and_reference_load_neither_jax_nor_the_port():
-    code = ("import sys\n"
+    """The harness, the generic reference and every net module under
+    ``portbench/nets/``."""
+    code = ("import os, sys\n"
             "from portbench import harness, reference, spec, trace, traffic, costs\n"
+            "nets = sorted(f[:-3] for f in os.listdir('portbench/nets') if f.endswith('.py'))\n"
+            "assert nets, 'no net module'\n"
+            "for name in nets:\n"
+            "    spec.net({'net': name})\n"
             "print(harness.forbidden_modules(extra=(harness.PORT,)))\n")
     proc = _isolated(code)
     assert proc.returncode == 0, proc.stderr

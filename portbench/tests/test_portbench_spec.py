@@ -101,6 +101,22 @@ def test_paths_hold_only_the_benchmark():
             assert re.match(r"^[A-Za-z0-9_./-]+$", rel), rel
 
 
+def test_a_missing_net_raises_naming_it(tmp_path):
+    root = tmp_path
+    shutil.copytree(os.path.join(spec.ROOT, "portbench"), root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    bench = json.loads(json.dumps(BENCH))
+    cfg = spec.load_json(os.path.join(spec.ROOT, "portbench/configs/resnet101-224-bf16.json"))
+    (root / "portbench/configs/resnet101-224-bf16.json").write_text(
+        json.dumps(dict(cfg, net="inception_v3")))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises(ModuleNotFoundError, match="inception_v3"):
+        spec.Cell("r101.window-1024", root=str(root))
+    for name in ("no_such_net", "../metrics/setup_s"):
+        with pytest.raises(ModuleNotFoundError, match=re.escape(name)):
+            spec.net({"name": "x", "net": name})
+
+
 def test_a_config_a_mix_and_a_metric_added_by_files(tmp_path):
     """A later change adds a configuration, a traffic mix, a cell and a
     per-layer metric as new files and entries; the harness finds them by
