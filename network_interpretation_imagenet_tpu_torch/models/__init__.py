@@ -50,6 +50,7 @@ from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import (  
 )
 from network_interpretation_imagenet_tpu_torch.models.shufflenet import STAGE_OUT
 from network_interpretation_imagenet_tpu_torch.models.vgg import CFGS, create_vgg
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 # Every arch name create_model takes (the JAX package's names).
 ALL_ARCHS = (ARCHS + tuple(CFGS) + tuple(f"{a}_bn" for a in CFGS)
@@ -110,7 +111,10 @@ class ModulePlan:
     the eval-mode module with ``state_dict`` loaded, every parameter and
     buffer in ``dtype`` on ``device`` (convolution weights channels_last, as
     the activations are). Calling it maps NHWC ``dtype`` images to f32
-    logits; it runs no hand-written kernel."""
+    logits; it runs no hand-written kernel.
+
+    A call is traced as span ``plan.forward`` (a child of the caller's
+    span, with its request id), with attribute ``batch`` (the images)."""
 
     def __init__(self, module: nn.Module, state_dict, dtype: torch.dtype = torch.bfloat16,
                  device="cpu") -> None:
@@ -120,7 +124,8 @@ class ModulePlan:
         self.net = net.to(self.device, dtype).to(memory_format=torch.channels_last)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x).float()
+        with trace.span("plan.forward", batch=x.shape[0]):
+            return self.net(x).float()
 
 
 def inference_plan(bundle: ModelBundle, state_dict, dtype: torch.dtype, device):
