@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ptrain-witness   # only the f32 parting witness (see 27)
     python3 chip_smoke.py --b2                # only B2's checks and timings, both instances (b2_only)
     python3 chip_smoke.py --b1                # only B1's checks and timings (see b1_only)
+    python3 chip_smoke.py --pool              # only the build and [pool] (see pool_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -273,6 +274,26 @@ kernel against its plain PyTorch version on the card:
      (1, 2)), at B=PTRAIN_TP_BATCH, each held to the f64 step as the
      world-1 step is, with each rank's parameter and slot bytes. Every
      rank's handoff launches sum under the path "parallel train".
+ 28. [pool] (run after [zoo]): P1 pool_nhwc, Inception-v3's 13 pools a
+     forward (models/inception.py:POOLS), against its plain version (the
+     library's F.avg_pool2d / F.max_pool2d) at each of their 10 shapes, at
+     B = 1 and 256 in bf16 and f32: max bit-exact, average within 1 ulp of
+     the output type (the share of elements that differ printed), and at
+     B = 1 an input autograd records: the kernel's forward and backward (two
+     launches), its gradient held the same way to the library's NCHW
+     backward (its channels_last avg_pool2d backward is wrong on torch
+     2.11.0+cu128); the SASS
+     of its eight instances holds 16-byte global loads and stores only; an
+     NCHW input raises and launches nothing; each shape at B=256 timed
+     (device time) beside its bytes bound, the plain version (CUDA events)
+     and the library's kernel (device time), and the 13 pools of a forward
+     of 256 summed in bf16, at most POOL_FORWARD_MS; one forward of
+     Inception-v3's bf16 module plan at 299^2 launches it 13 times, its
+     plan.forward span reads pool_launches 13, and its logits equal the
+     same plan's on the library's pools; that forward at B=256 timed with
+     the kernel and with the library's pools (CUDA events). [zoo]'s
+     Inception-v3 paths count 13 launches a forward through counted(),
+     every other path 0.
      ``--b1`` runs 1., 2. and 3. alone and then [B1 zoo]: Inception-v3's
      1,024 window masks and knockouts (evals/s as [zoo]) and B1's device
      time in one 1,024-mask window call.
@@ -388,6 +409,7 @@ ZOO = (("mnist_cnn", "mnist", {}), ("resnet", "cifar10+", {"depth": 56}),
 ZOO_TOL = 0.05               # a bf16 plan vs the plain f32 module: x max |logit|, as [main]
 ZOO_F32_TOL = 1e-4           # the f32 module, card vs CPU: x max |logit|, as [main]'s f32 engine
 PKG = "network_interpretation_imagenet_tpu_torch"
+POOL_FORWARD_MS = 2.5        # [pool]: the 13 pools of a forward of 256, bf16 (library's: ~16.7)
 PARALLEL_IMAGES = 8          # [parallel]: synthetic images of the sweeps, and the multi grid's N
 PARALLEL_MULTI_K = 128
 PARALLEL_F32_K = 256         # the f32 check's windows: one forward of the f32 sweep's chunk
@@ -970,19 +992,24 @@ def replay_trace(graph, tries=3):
     return wall * 1e3, span, union_ms(spans), groups
 
 
-def counted(by_path, path, fn, want_b1, want_b2):
+def counted(by_path, path, fn, want_b1, want_b2, want_p1=0):
     """Runs ``fn`` with the kernels' launch counters set to 0 just before and
     read just after; records them under ``path`` and raises unless they are
-    B1 ``want_b1`` and B2 ``want_b2``."""
+    B1 ``want_b1``, B2 ``want_b2`` and P1 ``want_p1`` (13 a forward of
+    Inception-v3, 0 on every other net)."""
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+    from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
 
     masked_batch.launches = 0
     bottleneck_chain.launches = 0
+    pool_nhwc.launches = 0
     result = fn()
-    got = {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches}
-    if got != {"masked_batch": want_b1, "bottleneck_chain": want_b2}:
-        raise AssertionError(f"{path}: launched {got}, want B1 {want_b1} and B2 {want_b2}")
+    got = {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches,
+           "pool_nhwc": pool_nhwc.launches}
+    if got != {"masked_batch": want_b1, "bottleneck_chain": want_b2, "pool_nhwc": want_p1}:
+        raise AssertionError(f"{path}: launched {got}, want B1 {want_b1}, B2 {want_b2} and "
+                             f"P1 {want_p1}")
     by_path[path] = got
     return result
 
@@ -2571,6 +2598,221 @@ def b1_zoo(smi):
     torch.cuda.empty_cache()
 
 
+def sass_p1_accesses(so_path):
+    """{kernel symbol: [128-bit global loads, narrower ones, 128-bit global
+    stores, narrower ones]} for every p1_pool_nhwc instance (the three
+    kinds and the max pool's gradient, bf16 and f32) in a built library's
+    SASS."""
+    counts, fn = {}, None
+    for line in sass_text(so_path).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "p1_pool_nhwc" in fn:
+                counts[fn] = [0, 0, 0, 0]
+        elif fn in counts:
+            op = next((t for t in line.split() if t.startswith(("LDG", "STG"))), None)
+            if op is not None:
+                counts[fn][(2 if op.startswith("STG") else 0)
+                           + ("128" not in op.split("."))] += 1
+    return counts
+
+
+def ulps_apart(got, want):
+    """Elementwise distance in units in the last place of two same-dtype
+    float tensors (bf16 or f32), from their bit patterns mapped onto one
+    ordered integer line."""
+    import torch
+
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    top = 1 << (8 * got.element_size() - 1)
+
+    def line(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i + top), i)
+
+    return (line(got) - line(want)).abs()
+
+
+def pool_phase(smi):
+    """28. [pool]: P1 against its plain version at Inception-v3's pool
+    shapes, its timings, and the module plan's 13 launches a forward.
+    Returns (the 13 pools' kernel, bound, plain and library ms in a forward
+    of 256 in bf16, and the records of every shape)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models import ModulePlan, create_model
+    from network_interpretation_imagenet_tpu_torch.models import inception
+    from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
+    from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import (
+        out_side,
+        pool_nhwc,
+        pool_nhwc_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.utils import logging as trace
+
+    accesses = sass_p1_accesses(_cuda_build.so_path("pool_nhwc"))
+    log(f"[pool] pool_nhwc SASS: {len(accesses)} p1_pool_nhwc instances, global [128-bit loads, "
+        "narrower, 128-bit stores, narrower] " + json.dumps(sorted(accesses.values())))
+    if len(accesses) != 8 or any(a[0] == 0 or a[1] or a[2] == 0 or a[3]
+                                 for a in accesses.values()):
+        raise AssertionError(f"P1's library: an instance with accesses narrower than 16 bytes "
+                             f"{accesses}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = list(dict.fromkeys((r, side, c) for _, r, side, c in inception.POOLS))
+    by_shape, timed = [], {}
+    for reduce, side, c in shapes:
+        out = out_side(side, reduce)
+        for batch in (1, MASK_BATCH):
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((batch, c, side, side), generator=gen, device=dev).to(dt)
+                x = x.contiguous(memory_format=torch.channels_last)
+                before = pool_nhwc.launches
+                got = pool_nhwc(x, reduce)
+                want = pool_nhwc_plain(x, reduce)
+                torch.cuda.synchronize()
+                if (pool_nhwc.launches != before + 1 or got.shape != want.shape
+                        or not got.is_contiguous(memory_format=torch.channels_last)):
+                    raise AssertionError(f"[pool] {reduce} {tuple(x.shape)} {dt}: no launch, or "
+                                         f"a result of shape {tuple(got.shape)}, strides "
+                                         f"{got.stride()}")
+                ulps = ulps_apart(got, want)
+                differ = (ulps > 0).float().mean().item()
+                if (reduce == "max" and not torch.equal(got, want)) or ulps.max().item() > 1:
+                    raise AssertionError(f"[pool] {reduce} {tuple(x.shape)} {dt}: kernel and "
+                                         f"plain {ulps.max().item()} ulp apart, share {differ}")
+                rec = {"reduce": reduce, "shape": [batch, side, side, c], "dtype": str(dt),
+                       "max_ulps": int(ulps.max().item()), "share_differing": differ}
+                if batch == 1:
+                    # Recorded by autograd: the kernel's forward and backward
+                    # (two launches) against the library's backward, same
+                    # tolerances. The library's is taken on NCHW copies: its
+                    # channels_last avg_pool2d backward reads wrong on torch
+                    # 2.11.0+cu128 (up to 2.0 off, gradients of magnitude
+                    # ~1.7), where the NCHW one agrees with the CPU's.
+                    leaf = x.detach().requires_grad_(True)
+                    g = torch.randn(want.shape, generator=gen, device=dev).to(dt).contiguous(
+                        memory_format=torch.channels_last)
+                    before = pool_nhwc.launches
+                    got_g, = torch.autograd.grad(pool_nhwc(leaf, reduce), leaf, g)
+                    launched = pool_nhwc.launches - before
+                    nchw = x.detach().contiguous().requires_grad_(True)
+                    want_g, = torch.autograd.grad(pool_nhwc_plain(nchw, reduce), nchw,
+                                                  g.contiguous())
+                    gulps = ulps_apart(got_g, want_g)
+                    rec["grad_max_ulps"] = int(gulps.max().item())
+                    rec["grad_share_differing"] = (gulps > 0).float().mean().item()
+                    if launched != 2 or (reduce == "max" and not torch.equal(got_g, want_g)) \
+                            or rec["grad_max_ulps"] > 1:
+                        raise AssertionError(f"[pool] {reduce} {tuple(x.shape)} {dt} gradient: "
+                                             f"{launched} launches, {rec['grad_max_ulps']} ulp "
+                                             f"from the library's")
+                    del leaf, nchw, g, got_g, want_g, gulps
+                if batch == MASK_BATCH:
+                    nbytes = batch * c * (side * side + out * out) * x.element_size()
+                    rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+                    rec["ms"] = kernel_ms(lambda: pool_nhwc(x, reduce), 20, "p1_pool_nhwc")
+                    rec["plain_ms"] = time_ms(lambda: pool_nhwc_plain(x, reduce), 20)
+                    rec["library_ms"] = kernel_ms(lambda: pool_nhwc_plain(x, reduce), 20,
+                                                  "avg_pool2d" if reduce == "avg" else "max_pool")
+                    timed[(reduce, side, c, dt)] = rec
+                by_shape.append(rec)
+                log(f"[pool] {smi}: {reduce} {batch}x{side}x{side}x{c} -> {out}x{out} {dt}: "
+                    f"max {rec['max_ulps']} ulp, share differing {differ:.3g}"
+                    + (f"; gradient max {rec['grad_max_ulps']} ulp, share differing "
+                       f"{rec['grad_share_differing']:.3g}" if batch == 1 else "")
+                    + (f"; kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                       f"({rec['bound_ms'] / rec['ms']:.3f} of bound), plain {rec['plain_ms']:.4f}"
+                       f" ms, library {rec['library_ms']:.4f} ms" if batch == MASK_BATCH else ""))
+                del x, got, want, ulps
+        torch.cuda.empty_cache()
+
+    # On the card an NCHW input raises, naming its shape; nothing launches.
+    x = torch.randn((2, 64, 35, 35), generator=gen, device=dev)
+    before = pool_nhwc.launches
+    for reduce in ("avg", "max"):
+        try:
+            pool_nhwc(x, reduce)
+        except ValueError as e:
+            if "(2, 64, 35, 35)" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[pool] an NCHW {reduce} input on the card did not raise")
+    if pool_nhwc.launches != before:
+        raise AssertionError("[pool] an NCHW input launched the kernel")
+
+    total = {k: sum(timed[(r, side, c, torch.bfloat16)][k] for _, r, side, c in inception.POOLS)
+             for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    log(f"[pool] {smi}: the 13 pools of a forward of {MASK_BATCH}, bf16: kernel "
+        f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({total['bound_ms'] / total['ms']:.3f} of bound), plain {total['plain_ms']:.4f} ms, "
+        f"library {total['library_ms']:.4f} ms")
+    if total["ms"] > POOL_FORWARD_MS:
+        raise AssertionError(f"[pool] the 13 pools take {total['ms']:.3f} ms a forward of "
+                             f"{MASK_BATCH}, above {POOL_FORWARD_MS}")
+
+    # The module plan: one bf16 forward launches the kernel 13 times and its
+    # span says so; its logits against the same plan on the library's pools.
+    bundle = create_model("inception_v3", "imagenet", dtype=torch.bfloat16)
+    plan = ModulePlan(bundle.module, bundle.init(SEED), torch.bfloat16, dev)
+    img = torch.randn((MASK_BATCH, 299, 299, 3), generator=gen, device=dev).to(torch.bfloat16)
+    library = {"_avg3": lambda t: pool_nhwc_plain(t, "avg"),
+               "_max3s2": lambda t: pool_nhwc_plain(t, "max")}
+    saved = {name: getattr(inception, name) for name in library}
+    with torch.inference_mode():
+        trace.clear()
+        trace.enable()
+        before = pool_nhwc.launches
+        try:
+            got = plan(img[:2])
+        finally:
+            trace.disable()
+        spans = [sp.attrs.get("pool_launches") for sp in trace.spans()
+                 if sp.name == "plan.forward"]
+        trace.clear()
+        launched = pool_nhwc.launches - before
+        kernel_fwd = time_ms(lambda: plan(img), 5)
+        try:
+            for name, fn in library.items():
+                setattr(inception, name, fn)
+            want = plan(img[:2])
+            library_fwd = time_ms(lambda: plan(img), 5)
+        finally:
+            for name, fn in saved.items():
+                setattr(inception, name, fn)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"[pool] {smi}: inception_v3 bf16 plan at 299^2: {launched} launches a forward, span "
+        f"pool_launches {spans}; logits vs the library's pools equal {torch.equal(got, want)}, "
+        f"max err {err:.4g} (max |logit| {scale:.4g}); forward of {MASK_BATCH} "
+        f"{kernel_fwd:.3f} ms, on the library's pools {library_fwd:.3f} ms (CUDA events)")
+    if launched != len(inception.POOLS) or spans != [len(inception.POOLS)] or \
+            not torch.equal(got, want):
+        raise AssertionError(f"[pool] the plan: {launched} launches, spans' pool_launches "
+                             f"{spans}, logit err {err} of {scale}")
+    del plan, img
+    torch.cuda.empty_cache()
+    return total, by_shape
+
+
+def pool_only() -> int:
+    """``--pool``: only the build and [pool] (1., 2., 28.), for a first
+    check of the pool kernel, or to compare two trees of the port on one
+    card in one call. Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, smi = device_and_build()
+    pool_phase(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
 def zoo_image(dataset, size):
     """(normalized f32 HWC, display uint8) of the synthetic image at
     ``size``^2 for ``dataset`` (one gray channel for MNIST), as the CLIs'
@@ -2626,6 +2868,7 @@ def zoo_phase(smi, by_path):
     import torch
 
     from network_interpretation_imagenet_tpu_torch.models import ModulePlan
+    from network_interpretation_imagenet_tpu_torch.models.inception import POOLS
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import (
         masked_batch,
         masked_batch_plain,
@@ -2664,10 +2907,11 @@ def zoo_phase(smi, by_path):
             raise AssertionError(f"[zoo] {arch}: bf16 plan vs f32 module err {err} (max |logit| "
                                  f"{scale}), f32 card vs CPU err {err32}")
         del f32, cpu, x, image_t, seg_t, firsts_t
+        pools = len(POOLS) * chunks if arch == "inception_v3" else 0
         res = counted(by_path, f"zoo_{arch}_window", lambda: z.engine.eval_window_masks(
-            z.normalized, z.segments, z.firsts, z.width, z.target), chunks, 0)
+            z.normalized, z.segments, z.firsts, z.width, z.target), chunks, 0, pools)
         ko = counted(by_path, f"zoo_{arch}_knockout", lambda: z.engine.eval_knockout_masks(
-            z.normalized, z.segments, z.knock, z.target), 0, 0)
+            z.normalized, z.segments, z.knock, z.target), 0, 0, pools)
         if not (np.isfinite(res.prob_target).all() and np.isfinite(ko.prob_target).all()):
             raise AssertionError(f"[zoo] {arch}: non-finite outcomes")
 
@@ -4773,6 +5017,7 @@ def main() -> int:
     from network_interpretation_imagenet_tpu_torch.models import create_model
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
+    from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
         normalize,
         to_display_uint8,
@@ -4805,6 +5050,7 @@ def main() -> int:
     engine = SaliencyEngine(bundle, bundle.init(SEED), mask_batch=MASK_BATCH, device="cuda")
     masked_batch.launches = 0
     bottleneck_chain.launches = 0
+    pool_nhwc.launches = 0
     t0 = time.perf_counter()
     segments = segment_image(display, SegmentConfig())
     target, logits = engine.predict_one(normalized)
@@ -4813,7 +5059,7 @@ def main() -> int:
     iou, box = localization_score(out.heatmap, gt)
     main_s = time.perf_counter() - t0
     launches = {"masked_batch": masked_batch.launches,
-                "bottleneck_chain": bottleneck_chain.launches}
+                "bottleneck_chain": bottleneck_chain.launches, "pool_nhwc": pool_nhwc.launches}
     chunks = -(-NUM_SAMPLES // MASK_BATCH)
     forwards = 1 + chunks
     log(f"[main] S={out.num_segments} width={out.width} target={target} "
@@ -4824,6 +5070,8 @@ def main() -> int:
     if launches["bottleneck_chain"] != 4 * forwards:
         raise AssertionError(f"B2 launched {launches['bottleneck_chain']} times, "
                              f"want {4 * forwards}")
+    if launches["pool_nhwc"]:
+        raise AssertionError(f"P1 launched {launches['pool_nhwc']} times on ResNet-101")
     if not (np.isfinite(logits).all() and np.isfinite(out.heatmap).all()):
         raise AssertionError("non-finite logits or heatmap")
     if out.heatmap.shape != (224, 224) or not 0.0 <= iou <= 1.0:
@@ -4924,6 +5172,7 @@ def main() -> int:
     slic_phase(display, smi)
     sweep_phase(engine, smi, paths)
     zoo_phase(smi, paths)
+    pool_total, pool_by_shape = pool_phase(smi)
     bo_zoo_phase(normalized, seg_np, smi, paths)
     gen_small_phase(smi, paths)
     serve_phase(engine, normalized, seg_np, target, smi, paths)
@@ -4932,7 +5181,10 @@ def main() -> int:
     parallel_train_phase(smi, paths)
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    by_path = {name: {path: counts[name] for path, counts in paths.items()} for name in launches}
+    # P1's count is kept where counted() or [main] read it; the spawned
+    # [parallel] ranks run ResNets and report B1 and B2 only.
+    by_path = {name: {path: counts[name] for path, counts in paths.items() if name in counts}
+               for name in launches}
 
     kernels = [
         {"name": "masked_batch", "route": "cuda", "source": f"{PKG}/csrc/masked_batch.cu",
@@ -4949,6 +5201,13 @@ def main() -> int:
          "ms": b2["ms"], "plain_ms": b2["plain_ms"], "bound_ms": max(b2_ops_ms, b2_bytes_ms),
          "bound_by": "operations" if b2_ops_ms >= b2_bytes_ms else "bytes",
          "library_ms": None, "f32_max_abs_err": b2["f32_block_err"], "f32_by_shape": b2["f32"]},
+        {"name": "pool_nhwc", "route": "cuda", "source": f"{PKG}/csrc/pool_nhwc.cu",
+         "replaces": None, "launches": sum(by_path["pool_nhwc"].values()),
+         "launches_by_path": by_path["pool_nhwc"],
+         "max_ulps": max(r["max_ulps"] for r in pool_by_shape), "ms": pool_total["ms"],
+         "plain_ms": pool_total["plain_ms"], "bound_ms": pool_total["bound_ms"],
+         "bound_by": "bytes", "library_ms": pool_total["library_ms"],
+         "by_shape": pool_by_shape},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -4966,4 +5225,6 @@ if __name__ == "__main__":
         sys.exit(b2_only())
     if sys.argv[1:] == ["--b1"]:
         sys.exit(b1_only())
+    if sys.argv[1:] == ["--pool"]:
+        sys.exit(pool_only())
     sys.exit(main())

@@ -50,6 +50,7 @@ from network_interpretation_imagenet_tpu_torch.models.resnet_imagenet import (  
 )
 from network_interpretation_imagenet_tpu_torch.models.shufflenet import STAGE_OUT
 from network_interpretation_imagenet_tpu_torch.models.vgg import CFGS, create_vgg
+from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
 from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 # Every arch name create_model takes (the JAX package's names).
@@ -111,10 +112,15 @@ class ModulePlan:
     the eval-mode module with ``state_dict`` loaded, every parameter and
     buffer in ``dtype`` on ``device`` (convolution weights channels_last, as
     the activations are). Calling it maps NHWC ``dtype`` images to f32
-    logits; it runs no hand-written kernel.
+    logits. Its one hand-written kernel is Inception-v3's pools
+    (``ops/pool_nhwc.py``), on the card; every other op is PyTorch's.
 
     A call is traced as span ``plan.forward`` (a child of the caller's
-    span, with its request id), with attribute ``batch`` (the images)."""
+    span, with its request id), with attributes ``batch`` (the images) and,
+    once the net has run, ``pool_launches`` (the pool kernel's launches
+    during the call: 13 for Inception-v3 on the card, 0 on the CPU; read
+    from the process-wide counter ``pool_nhwc.launches``, so forwards that
+    run at once in other threads add theirs)."""
 
     def __init__(self, module: nn.Module, state_dict, dtype: torch.dtype = torch.bfloat16,
                  device="cpu") -> None:
@@ -124,8 +130,12 @@ class ModulePlan:
         self.net = net.to(self.device, dtype).to(memory_format=torch.channels_last)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        with trace.span("plan.forward", batch=x.shape[0]):
-            return self.net(x).float()
+        with trace.span("plan.forward", batch=x.shape[0]) as open_span:
+            pools = pool_nhwc.launches
+            logits = self.net(x).float()
+            if open_span is not None:
+                open_span.annotate(pool_launches=pool_nhwc.launches - pools)
+            return logits
 
 
 def inference_plan(bundle: ModelBundle, state_dict, dtype: torch.dtype, device):

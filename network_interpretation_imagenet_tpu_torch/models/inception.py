@@ -6,13 +6,15 @@ torchvision's module and state-dict names (``Conv2d_1a_3x3`` ...
 re-normalization for its published weights, on as in the JAX package's
 ``create_model``. The train-only ``AuxLogits`` head is built so that
 torchvision checkpoints load as they are; inference never runs it, and the
-JAX package has no parameters for it (``optional_prefixes``).
+JAX package has no parameters for it (``optional_prefixes``). The 13
+pools of a forward (:data:`POOLS`) go through ``ops/pool_nhwc.py``: its
+kernel on the card (and its gradient where autograd records the net), the
+library's pools on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from network_interpretation_imagenet_tpu_torch.models.common import (
@@ -23,6 +25,7 @@ from network_interpretation_imagenet_tpu_torch.models.common import (
     parts_of,
     transform_input,
 )
+from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
 
 
 def torch_name(path) -> str:
@@ -31,11 +34,22 @@ def torch_name(path) -> str:
 
 
 def _avg3(x):
-    return F.avg_pool2d(x, 3, 1, 1)
+    return pool_nhwc(x, "avg")
 
 
 def _max3s2(x):
-    return F.max_pool2d(x, 3, 2)
+    return pool_nhwc(x, "max")
+
+
+# The pools of one forward at 299^2, in order: (where, reduce, input side,
+# channels); "avg" is 3x3/1/pad 1 with zeros counted, "max" 3x3/2 VALID.
+POOLS = (("Conv2d_2b_3x3", "max", 147, 64), ("Conv2d_4a_3x3", "max", 71, 192),
+         ("Mixed_5b", "avg", 35, 192), ("Mixed_5c", "avg", 35, 256),
+         ("Mixed_5d", "avg", 35, 288), ("Mixed_6a", "max", 35, 288),
+         ("Mixed_6b", "avg", 17, 768), ("Mixed_6c", "avg", 17, 768),
+         ("Mixed_6d", "avg", 17, 768), ("Mixed_6e", "avg", 17, 768),
+         ("Mixed_7a", "max", 17, 768), ("Mixed_7b", "avg", 8, 1280),
+         ("Mixed_7c", "avg", 8, 2048))
 
 
 class _Block(nn.Module):
