@@ -1,6 +1,6 @@
 """Configuration (port of ``config.py`` of the JAX package): the dataset
-registry, segmentation settings, the engine's compute dtype, the BO
-settings and the training harness's settings."""
+registry, segmentation settings, the BO settings and the training
+harness's settings."""
 
 from __future__ import annotations
 
@@ -57,11 +57,6 @@ class SegmentConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class EngineConfig:
-    compute_dtype: str = "bfloat16"
-
-
-@dataclasses.dataclass(frozen=True)
 class BOConfig:
     """GP-EI BO settings (reference bayesian_active_learning_imagenet.py:479-486,
     BayesianOptimization.py:99-192)."""
@@ -70,20 +65,8 @@ class BOConfig:
     n_pre_samples: int = 3
     alpha: float = 1e-5              # GP noise (reference BO alpha=1e-5)
     epsilon: float = 1e-7            # duplicate-rejection tolerance
-    greater_is_better: bool = True   # maximize survival probability
     # The MLL argmax over this grid replaces sklearn's n_restarts_optimizer=10.
     lengthscale_grid: Tuple[float, ...] = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """The ("data", "model") mesh of ``parallel.make_mesh``: the mask and image
-    batches shard over ``data_axis``; ``model_parallel`` ranks per data shard
-    (1 = pure data parallelism)."""
-
-    data_axis: str = "data"
-    model_axis: str = "model"
-    model_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,9 @@ from typing import Sequence, Tuple
 
 import torch
 
+from network_interpretation_imagenet_tpu_torch.ops.aggregate import (
+    normalize_to_uint8 as to_display_uint8,  # the image the reference feeds to Felzenszwalb
+)
 from network_interpretation_imagenet_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -68,15 +71,6 @@ def denormalize(img: torch.Tensor, mean: Sequence[float], std: Sequence[float]) 
     mean_t = torch.as_tensor(mean, dtype=img.dtype, device=img.device)
     std_t = torch.as_tensor(std, dtype=img.dtype, device=img.device)
     return img * std_t + mean_t
-
-
-def to_display_uint8(img: torch.Tensor) -> torch.Tensor:
-    """Min-max scale a *normalized* HWC image to uint8 [0, 255]: the image
-    the reference feeds to Felzenszwalb."""
-    x = img.to(torch.float32)
-    x = x - x.min()
-    x = x / torch.clamp(x.max(), min=torch.finfo(torch.float32).tiny)
-    return (x * 255.0).to(torch.uint8)
 
 
 def standard_eval_pipeline(img_u8: torch.Tensor, size: int, mean: Sequence[float],

@@ -191,30 +191,112 @@ def _sharded_knockout_saliency(engine: SaliencyEngine, mesh, image, segments, kn
         heatmap=heat, knock_ids=knock_ids)
 
 
-def _sweep_scaffold(journal, logger, keep_heatmaps):
-    """(res, iou_m, surv_m, latencies, done, log) with journaled work
-    restored: the common preamble of every sweep."""
-    log = logger or PhaseLogger(enabled=False)
-    res = SweepResult()
-    iou_m, surv_m = AverageMeter(), AverageMeter()
-    latencies = []
-    done = ()
-    if journal is not None:
-        from network_interpretation_imagenet_tpu_torch.saliency.journal import JournalingLogger
-
-        journal.restore_into(res, iou_m, surv_m, latencies, keep_heatmaps)
-        done = journal.done
-        log = JournalingLogger(log, journal)
-    return res, iou_m, surv_m, latencies, done, log
+def _misclassified(pred: int, label) -> bool:
+    return label is not None and pred != int(label)
 
 
-def _finish_sweep(res, iou_m, surv_m, latencies, total_evals, wall):
-    res.mean_iou = iou_m.avg
-    res.mean_survival = surv_m.avg
-    res.p50_latency_s = float(np.median(latencies)) if latencies else 0.0
-    res.evals_per_sec = total_evals / wall if wall > 0 else 0.0
-    _finalize_fidelity_means(res)
-    return res
+class _Books:
+    """One sweep's bookkeeping, shared by every lane and both drivers: the
+    result and its meters, the latencies, the journaled work restored and
+    the log (teeing terminal events to the journal). It writes each image's
+    row, skip and failure; the lanes keep their pipelines."""
+
+    def __init__(self, engine, journal, logger, keep_heatmaps: bool, bbox_threshold: int,
+                 fidelity_steps: int, normalize=None) -> None:
+        self.engine, self.journal, self.keep_heatmaps = engine, journal, keep_heatmaps
+        self.bbox_threshold, self.fidelity_steps = bbox_threshold, fidelity_steps
+        self.normalize = normalize
+        self.log = logger or PhaseLogger(enabled=False)
+        self.res = SweepResult()
+        self.iou_m, self.surv_m = AverageMeter(), AverageMeter()
+        self.latencies = []
+        self.done = ()
+        if journal is not None:
+            from network_interpretation_imagenet_tpu_torch.saliency.journal import JournalingLogger
+
+            journal.restore_into(self.res, self.iou_m, self.surv_m, self.latencies,
+                                 keep_heatmaps)
+            self.done = journal.done
+            self.log = JournalingLogger(self.log, journal)
+        self.gt = {}  # index -> gt box, from the dataset item
+        self.evals = 0
+        self.t_start = time.perf_counter()
+
+    def items(self, dataset: Iterable, max_images: Optional[int], dataset_indices):
+        """``(i, t0, image, label)`` for each image this run explains: at most
+        ``max_images`` positions, ``dataset_indices`` mapping position ->
+        index, journaled images skipped. An item that will not unpack fails
+        here."""
+        for pos, item in enumerate(dataset):
+            if max_images is not None and pos >= max_images:
+                break
+            i = int(dataset_indices[pos]) if dataset_indices is not None else pos
+            if i in self.done:  # a terminal outcome journaled by an earlier run
+                continue
+            self.res.images_total += 1
+            t0 = time.perf_counter()
+            try:
+                image, label, gt_bbox = _unpack_item(item)
+                image = np.asarray(image)
+                self.gt[i] = gt_bbox
+            except Exception as e:
+                self.image_failed(i, e)
+                continue
+            yield i, t0, image, label
+
+    def finish(self, i: int, target: int, heat, t0: float, image: np.ndarray, evals: int,
+               fields: dict) -> None:
+        """The row of an explained image, ``{index, target, **fields, iou?,
+        fidelity..., seconds}``; a ``"survival"`` field feeds the survival
+        meter. ``image`` (uint8 on the uint8 wire) is what fidelity scores."""
+        self.evals += evals
+        heat = np.asarray(heat)
+        row = {"index": i, "target": target, **fields}
+        if "survival" in fields:
+            self.surv_m.update(float(fields["survival"]))
+        gt_bbox = self.gt.get(i)
+        if gt_bbox is not None:
+            iou, _ = localization_score(heat, gt_bbox, self.bbox_threshold)
+            row["iou"] = float(iou)
+            self.iou_m.update(float(iou))
+        if self.fidelity_steps > 0:
+            if image.dtype == np.uint8 and self.normalize is not None:
+                image = _u8_normalize_host(image, self.normalize)
+            row.update(_fidelity_row_fields(self.engine, image, heat, target, gt_bbox,
+                                            self.fidelity_steps))
+        self.res.images_explained += 1
+        if self.keep_heatmaps:
+            self.res.heatmaps[i] = heat
+            if self.journal is not None:
+                self.journal.save_heatmap(i, heat)  # before the row marks it done
+        self.latencies.append(time.perf_counter() - t0)
+        row["seconds"] = round(self.latencies[-1], 4)
+        self.res.per_image.append(row)
+        self.log.emit({"event": "image_done", **row})
+
+    def skip(self, i: int, pred: int, label) -> None:
+        self.res.images_skipped_misclassified += 1
+        self.log.emit({"event": "skip_misclassified", "index": i, "pred": pred,
+                       "label": int(label)})
+
+    def image_failed(self, i: int, e: Exception) -> None:
+        _fatal(e)
+        self.res.images_failed += 1
+        self.log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+
+    def batch_failed(self, indices: list, e: Exception) -> None:
+        _fatal(e)
+        self.res.images_failed += len(indices)
+        self.log.emit({"event": "batch_failed", "indices": indices, "error": repr(e)})
+
+    def result(self) -> SweepResult:
+        res, wall = self.res, time.perf_counter() - self.t_start
+        res.mean_iou = self.iou_m.avg
+        res.mean_survival = self.surv_m.avg
+        res.p50_latency_s = float(np.median(self.latencies)) if self.latencies else 0.0
+        res.evals_per_sec = self.evals / wall if wall > 0 else 0.0
+        _finalize_fidelity_means(res)
+        return res
 
 
 def saliency_sweep(
@@ -291,40 +373,17 @@ def saliency_sweep(
         return aggregate.summed_superpixel_labels_np(seg, plan["firsts"], plan["width"],
                                                      survived)
 
-    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
-    total_evals = 0
-    t_start = time.perf_counter()
-    gt_by_index = {}
+    book = _Books(engine, journal, logger, keep_heatmaps, bbox_threshold, fidelity_steps)
+    log = book.log
 
-    def finish_image(i, target, s, heat, survived, t0, image):
-        nonlocal total_evals
-        total_evals += num_mask_samples
-        row = {"index": i, "target": target, "num_segments": s,
-               "survival": float(np.mean(survived))}
-        surv_m.update(row["survival"])
-        gt_bbox = gt_by_index.get(i)
-        if gt_bbox is not None:
-            iou, _ = localization_score(heat, gt_bbox, bbox_threshold)
-            row["iou"] = float(iou)
-            iou_m.update(float(iou))
-        if fidelity_steps > 0:
-            row.update(_fidelity_row_fields(engine, image, heat, target, gt_bbox,
-                                            fidelity_steps))
-        res.images_explained += 1
-        if keep_heatmaps:
-            res.heatmaps[i] = np.asarray(heat)
-        if journal is not None and keep_heatmaps:
-            journal.save_heatmap(i, heat)  # before the row marks it done
-        latencies.append(time.perf_counter() - t0)
-        row["seconds"] = round(latencies[-1], 4)
-        res.per_image.append(row)
-        log.emit({"event": "image_done", **row})
+    def finish(i, target, s, heat, survived, t0, image):
+        book.finish(i, target, heat, t0, image, num_mask_samples,
+                    {"num_segments": s, "survival": float(np.mean(survived))})
 
     def skip(i, pred, label) -> bool:
-        if label is None or pred == int(label):
+        if not _misclassified(pred, label):
             return False
-        res.images_skipped_misclassified += 1
-        log.emit({"event": "skip_misclassified", "index": i, "pred": pred, "label": int(label)})
+        book.skip(i, pred, label)
         return True
 
     pending = []                    # batched path: (i, image, display, label, t0)
@@ -344,11 +403,9 @@ def saliency_sweep(
                 return
             with trace.span("sweep.finish", rid=fl["i"]):
                 heat = aggregate_plan(fl["seg"], fl["plan"], r.survived)
-                finish_image(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
+                finish(fl["i"], pred, fl["s"], heat, r.survived, fl["t0"], fl["image"])
         except Exception as e:
-            _fatal(e)
-            res.images_failed += 1
-            log.emit({"event": "image_failed", "index": fl["i"], "error": repr(e)})
+            book.image_failed(fl["i"], e)
 
     def collect_batch():
         """Finalize the in-flight flush. A failure to fetch fails the whole
@@ -365,10 +422,7 @@ def saliency_sweep(
             else:   # the mesh's flush, gathered already
                 survived_per_image = fb["survived_per_image"]
         except Exception as e:
-            _fatal(e)
-            res.images_failed += len(fb["metas"])
-            log.emit({"event": "batch_failed", "indices": [m[0] for m in fb["metas"]],
-                      "error": repr(e)})
+            book.batch_failed([m[0] for m in fb["metas"]], e)
             return
         for j, (i, seg, s, plan, label, t0, img) in enumerate(fb["metas"]):
             try:
@@ -376,11 +430,9 @@ def saliency_sweep(
                 if skip(i, pred, label):
                     continue
                 surv = survived_per_image[j]
-                finish_image(i, pred, s, aggregate_plan(seg, plan, surv), surv, t0, img)
+                finish(i, pred, s, aggregate_plan(seg, plan, surv), surv, t0, img)
             except Exception as e:
-                _fatal(e)
-                res.images_failed += 1
-                log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+                book.image_failed(i, e)
 
     def flush_pending():
         """Dispatch the pending images (one upload, one batched predict with
@@ -434,24 +486,11 @@ def saliency_sweep(
             collect_batch()  # the previous flush drains while this one computes
             inflight_batch = fb
         except Exception as e:
-            _fatal(e)
-            res.images_failed += len(batch)
-            log.emit({"event": "batch_failed", "indices": [b[0] for b in batch],
-                      "error": repr(e)})
+            book.batch_failed([b[0] for b in batch], e)
 
     on_mesh = mesh_size(mesh) > 1
-    for pos, item in enumerate(dataset):
-        if max_images is not None and pos >= max_images:
-            break
-        i = int(dataset_indices[pos]) if dataset_indices is not None else pos
-        if i in done:  # a terminal outcome journaled by an earlier run
-            continue
-        res.images_total += 1
-        t0 = time.perf_counter()
+    for i, t0, image, label in book.items(dataset, max_images, dataset_indices):
         try:
-            image, label, gt_bbox = _unpack_item(item)
-            image = np.asarray(image)
-            gt_by_index[i] = gt_bbox
             # Host segmentation runs first, so it overlaps the card running
             # the in-flight image. A SLIC flush derives its displays on the
             # device from the flush's one upload.
@@ -480,8 +519,7 @@ def saliency_sweep(
                         out = _sharded_window_saliency(engine, mesh, image, seg,
                                                        num_mask_samples, window_fraction,
                                                        seed + i, target, plan["firsts"])
-                finish_image(i, target, out.num_segments, out.heatmap, out.eval.survived, t0,
-                             image)
+                finish(i, target, out.num_segments, out.heatmap, out.eval.survived, t0, image)
                 continue
             # Prediction, argmax (a device scalar, so the masked forwards
             # need no fetch) and masked forwards are all enqueued; the image
@@ -501,16 +539,13 @@ def saliency_sweep(
             while len(inflight) > 1:
                 collect_one()
         except Exception as e:  # per-image failure isolation
-            _fatal(e)
-            res.images_failed += 1
-            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+            book.image_failed(i, e)
 
     while inflight:
         collect_one()
     flush_pending()  # dispatch the tail flush and drain the previous one
     collect_batch()
-    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
-                         time.perf_counter() - t_start)
+    return book.result()
 
 
 def _u8_normalize_device(u8: torch.Tensor, normalize) -> torch.Tensor:
@@ -543,32 +578,22 @@ def _quantize_heats_device(heats: torch.Tensor):
 
 def _batched_flush_sweep(
     engine: SaliencyEngine,
-    dataset: Iterable,
+    items,
+    book: _Books,
     *,
-    image_batch: int,
-    max_images: Optional[int],
-    log,
-    res: SweepResult,
-    iou_m: AverageMeter,
-    surv_m: AverageMeter,
-    latencies: list,
-    done,
-    journal,
-    keep_heatmaps: bool,
-    dataset_indices,
-    bbox_threshold: int,
-    fidelity_steps: int,
-    evals_per_image,
     enqueue_display,
     dispatch,
     collect,
+    evals_per_image,
+    image_batch: int,
     normalize=None,
     prepare=None,
-) -> int:
+) -> None:
     """Shared driver of the image-batched sweeps (fused BO and attribution):
     a staged flush pipeline (upload and prepare flush k, dispatch flush k-1,
-    finalize flush k-2), a batched predict with the misclassification skip
-    before dispatch, and per-image IOU, fidelity, heatmap and journal rows.
+    finalize flush k-2) over ``items`` (``book.items``), a batched predict
+    with the misclassification skip before dispatch, and each kept image's
+    row written by ``book``.
 
     The per-flush compute comes as hooks:
 
@@ -577,78 +602,45 @@ def _batched_flush_sweep(
       issued as soon as a flush is uploaded, without waiting for it;
     * ``dispatch(imgs_dev, disps, keep, idxs, preds, prep) -> state``: enqueue
       the flush's program over the kept images; raising fails them;
-    * ``collect(state) -> [(heatmap, extra_row_fields)]`` aligned with
-      ``keep``; a ``"survival"`` field feeds the survival meter.
+    * ``collect(state) -> [(heatmap, row_fields)]`` aligned with ``keep``.
 
-    Returns the eval count (``evals_per_image`` per finalized kept image, or
-    a callable of the image shape).
+    ``evals_per_image`` counts each finalized kept image's evals (or is a
+    callable of the image shape).
 
     ``normalize=(mean, std)`` enables the uint8 wire: the dataset yields raw
     uint8 HWC images, uploaded at a quarter of the f32 bytes and normalized
     on the device. A flush that mixes uint8 and float images raises, as
     does uint8 without ``normalize``.
     """
-    total_evals = 0
-    pending = []   # (i, image, display, label, gt, t0)
+    pending = []   # (i, image, display, label, t0)
     inflight = []  # at most one dispatched flush, finalized behind the next
     staged = []    # at most one uploaded and prepared flush, not yet dispatched
 
     def finalize():
-        nonlocal total_evals
-        state, keep, idxs, preds, gts, t0s, imgs = inflight.pop(0)
+        state, keep, idxs, preds, t0s, imgs = inflight.pop(0)
         try:
             preds = _host(preds)  # a device tensor on the deferred-predict path
             results = collect(state)
         except Exception as e:
-            _fatal(e)
-            failed = [idxs[j] for j in keep]
-            res.images_failed += len(failed)
-            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            book.batch_failed([idxs[j] for j in keep], e)
             return
         for pos, j in enumerate(keep):
             try:
-                total_evals += (evals_per_image(imgs[j].shape) if callable(evals_per_image)
-                                else evals_per_image)
-                heat, extra = results[pos]
-                heat = np.asarray(heat)
-                row = {"index": idxs[j], "target": int(preds[j]), **extra}
-                if "survival" in extra:
-                    surv_m.update(float(extra["survival"]))
-                if gts[j] is not None:
-                    iou, _ = localization_score(heat, gts[j], bbox_threshold)
-                    row["iou"] = float(iou)
-                    iou_m.update(float(iou))
-                if fidelity_steps > 0:
-                    img_j = imgs[j]
-                    if img_j.dtype == np.uint8:
-                        img_j = _u8_normalize_host(img_j, normalize)
-                    row.update(_fidelity_row_fields(engine, img_j, heat, int(preds[j]), gts[j],
-                                                    fidelity_steps))
-                res.images_explained += 1
-                if keep_heatmaps:
-                    res.heatmaps[idxs[j]] = heat
-                if journal is not None and keep_heatmaps:
-                    journal.save_heatmap(idxs[j], heat)
-                latencies.append(time.perf_counter() - t0s[j])
-                row["seconds"] = round(latencies[-1], 4)
-                res.per_image.append(row)
-                log.emit({"event": "image_done", **row})
+                evals = (evals_per_image(imgs[j].shape) if callable(evals_per_image)
+                         else evals_per_image)
+                heat, fields = results[pos]
+                book.finish(idxs[j], int(preds[j]), heat, t0s[j], imgs[j], evals, fields)
             except Exception as e:
-                _fatal(e)
-                res.images_failed += 1
-                log.emit({"event": "image_failed", "index": idxs[j], "error": repr(e)})
+                book.image_failed(idxs[j], e)
 
     def dispatch_staged():
-        imgs_dev, disps, keep, idxs, preds, gts, t0s, imgs, prep = staged.pop(0)
+        imgs_dev, disps, keep, idxs, preds, t0s, imgs, prep = staged.pop(0)
         try:
             state = dispatch(imgs_dev, disps, keep, idxs, preds, prep)
         except Exception as e:
-            _fatal(e)
-            failed = [idxs[j] for j in keep]
-            res.images_failed += len(failed)
-            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            book.batch_failed([idxs[j] for j in keep], e)
             return
-        inflight.append((state, keep, idxs, preds, gts, t0s, imgs))
+        inflight.append((state, keep, idxs, preds, t0s, imgs))
         while len(inflight) > 1:  # finalize the previous flush behind this one
             finalize()
 
@@ -659,7 +651,7 @@ def _batched_flush_sweep(
         pending.clear()
         keep = None  # None until the skip decision lands (the predict can fail)
         try:
-            idxs, imgs, disps, labels, gts, t0s = zip(*batch)
+            idxs, imgs, disps, labels, t0s = zip(*batch)
             dtypes = {im.dtype for im in imgs}
             if np.dtype(np.uint8) in dtypes and len(dtypes) > 1:
                 # np.stack would promote the uint8 images to float raw pixels
@@ -680,60 +672,39 @@ def _batched_flush_sweep(
             else:
                 preds = engine.predict(imgs_dev).argmax(axis=1)
                 keep = [j for j in range(len(batch))
-                        if labels[j] is None or int(preds[j]) == int(labels[j])]
+                        if not _misclassified(int(preds[j]), labels[j])]
                 for j in range(len(batch)):
                     if j not in keep:
-                        res.images_skipped_misclassified += 1
-                        log.emit({"event": "skip_misclassified", "index": idxs[j],
-                                  "pred": int(preds[j]), "label": int(labels[j])})
+                        book.skip(idxs[j], int(preds[j]), labels[j])
                 if not keep:
                     return
             prep = prepare(imgs_dev, disps, keep) if prepare else None
         except Exception as e:
-            _fatal(e)
             # Skipped images are accounted for already; only the kept (or,
             # before the predict, the whole) set counts as failed.
-            failed = [b[0] for b in batch] if keep is None else [batch[j][0] for j in keep]
-            res.images_failed += len(failed)
-            log.emit({"event": "batch_failed", "indices": failed, "error": repr(e)})
+            book.batch_failed([b[0] for b in batch] if keep is None
+                              else [batch[j][0] for j in keep], e)
             return
-        staged.append((imgs_dev, disps, keep, idxs, preds, gts, t0s, imgs, prep))
+        staged.append((imgs_dev, disps, keep, idxs, preds, t0s, imgs, prep))
         while len(staged) > 1:  # dispatch the previous staged flush
             dispatch_staged()
 
-    for pos, item in enumerate(dataset):
-        if max_images is not None and pos >= max_images:
-            break
-        i = int(dataset_indices[pos]) if dataset_indices is not None else pos
-        if i in done:
-            continue
-        res.images_total += 1
-        t0 = time.perf_counter()
-        try:
-            image, label, gt_bbox = _unpack_item(item)
-            image = np.asarray(image)
-        except Exception as e:
-            res.images_failed += 1
-            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
-            continue
+    for i, t0, image, label in items:
         if image.dtype == np.uint8 and normalize is None:
             # A configuration error, not a per-image failure.
             raise ValueError("dataset yielded uint8 images; pass normalize=(mean, std) "
                              "so the sweep can scale + normalize them on device")
         try:
-            pending.append((i, image, enqueue_display(image), label, gt_bbox, t0))
+            pending.append((i, image, enqueue_display(image), label, t0))
             if len(pending) >= image_batch:
                 flush()
         except Exception as e:
-            _fatal(e)
-            res.images_failed += 1
-            log.emit({"event": "image_failed", "index": i, "error": repr(e)})
+            book.image_failed(i, e)
     flush()
     while staged:
         dispatch_staged()
     while inflight:
         finalize()
-    return total_evals
 
 
 def _kept(imgs_dev: torch.Tensor, keep) -> torch.Tensor:
@@ -823,8 +794,9 @@ def bo_saliency_sweep(
     )
 
     bo_cfg = bo_cfg or BOConfig()
-    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
-    t_start = time.perf_counter()
+    book = _Books(engine, journal, logger, keep_heatmaps, bbox_threshold, fidelity_steps,
+                  normalize)
+    log = book.log
 
     def enqueue_display(image):
         return None if seg_cfg.method == "slic" else _display(image)
@@ -863,16 +835,12 @@ def bo_saliency_sweep(
                                "best_start": int(trace.xp[np.argmax(trace.yp)])})
                 for pos, (out, trace) in enumerate(collect_fn())]
 
-    total_evals = _batched_flush_sweep(
-        engine, dataset, image_batch=image_batch, max_images=max_images, log=log, res=res,
-        iou_m=iou_m, surv_m=surv_m, latencies=latencies, done=done, journal=journal,
-        keep_heatmaps=keep_heatmaps, dataset_indices=dataset_indices,
-        bbox_threshold=bbox_threshold, fidelity_steps=fidelity_steps,
-        evals_per_image=bo_cfg.n_pre_samples + bo_cfg.n_iters * proposals_per_iter,
+    _batched_flush_sweep(
+        engine, book.items(dataset, max_images, dataset_indices), book,
         enqueue_display=enqueue_display, dispatch=dispatch, collect=collect,
-        normalize=normalize, prepare=prepare)
-    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
-                         time.perf_counter() - t_start)
+        evals_per_image=bo_cfg.n_pre_samples + bo_cfg.n_iters * proposals_per_iter,
+        image_batch=image_batch, normalize=normalize, prepare=prepare)
+    return book.result()
 
 
 def attribution_sweep(
@@ -952,8 +920,8 @@ def attribution_sweep(
     all_methods = gmod.BATCHABLE_METHODS + ("meaningful", "xrai") + gmod.MASK_BATCHED_METHODS
     if method not in all_methods:
         raise ValueError(f"unknown attribution method {method!r}; choose from {all_methods}")
-    res, iou_m, surv_m, latencies, done, log = _sweep_scaffold(journal, logger, keep_heatmaps)
-    t_start = time.perf_counter()
+    book = _Books(engine, journal, logger, keep_heatmaps, bbox_threshold, fidelity_steps,
+                  normalize)
     lm = dict(lm_cfg or {})
 
     def enqueue_display(image):
@@ -1034,16 +1002,12 @@ def attribution_sweep(
             heats = _host(state).astype(np.float32)
         return [(heats[pos], {"method": method}) for pos in range(len(heats))]
 
-    total_evals = _batched_flush_sweep(
-        engine, dataset, image_batch=image_batch, max_images=max_images, log=log, res=res,
-        iou_m=iou_m, surv_m=surv_m, latencies=latencies, done=done, journal=journal,
-        keep_heatmaps=keep_heatmaps, dataset_indices=dataset_indices,
-        bbox_threshold=bbox_threshold, fidelity_steps=fidelity_steps,
+    _batched_flush_sweep(
+        engine, book.items(dataset, max_images, dataset_indices), book,
+        enqueue_display=enqueue_display, dispatch=dispatch, collect=collect,
         evals_per_image=_attr_evals_per_image(
             method, steps=steps, samples=samples, lm=lm, rise_masks=rise_masks,
             mask_batch=mask_batch, patch=patch, stride=stride,
             scorecam_channels=scorecam_channels),
-        enqueue_display=enqueue_display, dispatch=dispatch, collect=collect,
-        normalize=normalize)
-    return _finish_sweep(res, iou_m, surv_m, latencies, total_evals,
-                         time.perf_counter() - t_start)
+        image_batch=image_batch, normalize=normalize)
+    return book.result()

@@ -4,10 +4,10 @@ Port of ``segment/felzenszwalb.py`` of the JAX package: ``felzenszwalb``,
 XRAI's multi-scale ``felzenszwalb_ladder``, and the native helpers of SLIC's
 connectivity pass (``label_components``, ``slic_postpass_native``). The
 serial union-find is host work: ``native/felzenszwalb.cc``, the port's own
-redesign of the JAX package's kernel, is compiled with ``g++`` at first use
-into ``_build/`` and loaded with ctypes. It runs one pass from the image to
-the labels (smoothing, edges, sort, union-find) over buffers each thread
-keeps between calls. A failed build raises; the numpy implementation (scipy's
+redesign of the JAX package's kernel, is built at first use by
+``ops/_cuda_build.py`` (``g++``, into ``_build/``) and loaded with ctypes.
+It runs one pass from the image to the labels (smoothing, edges, sort,
+union-find) over buffers each thread keeps between calls. A failed build raises; the numpy implementation (scipy's
 smoothing, then ``_felzenszwalb_numpy``) runs only when asked for
 (``backend="numpy"``) and is the yardstick the tests hold the native kernel
 to, bit for bit.
@@ -16,65 +16,27 @@ to, bit for bit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from typing import Optional
 
 import numpy as np
 
+from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
 from network_interpretation_imagenet_tpu_torch.segment.common import relabel_sequential
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "native", "felzenszwalb.cc")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# No -march=native: _build/ may be copied to another machine with the
-# checkout, and a library tuned to one CPU can fault on another. No
-# contraction: a fused multiply-add would round the smoothing and the edge
-# weights otherwise than scipy and numpy do.
-_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-ffp-contract=off")
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+_I32P, _F32P = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+_F64P, _I32 = ctypes.POINTER(ctypes.c_double), ctypes.c_int32
+_SIGNATURES = {
+    "felzenszwalb_image": [ctypes.c_void_p, _I32, _I32, _I32, _I32, _F64P, _I32, _F32P, _I32P,
+                           _I32, _I32P],
+    "felzenszwalb_smooth": [ctypes.c_void_p, _I32, _I32, _I32, _I32, _F64P, _I32, _F32P],
+    "label_components": [_I32P, _I32, _I32, _I32P],
+    "slic_postpass": [_I32P, _I32, _I32, ctypes.c_float, _I32P],
+    "xrai_greedy_rank": [_F64P, _I32P, _I32, _I32, _I32, _F32P],
+}
 
 
 def _load_native() -> ctypes.CDLL:
-    """Build (once per source hash) and load the C++ kernel; raises on failure."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(_CXXFLAGS).encode()).hexdigest()[:16]
-        path = os.path.join(_BUILD_DIR, f"libfelzenszwalb-{digest}.so")
-        if not os.path.isfile(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, _SOURCE],
-                                  capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0:
-                raise RuntimeError(f"building {_SOURCE} failed:\n{proc.stderr[-4000:]}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
-        f64p, i32 = ctypes.POINTER(ctypes.c_double), ctypes.c_int32
-        lib.felzenszwalb_image.restype = i32
-        lib.felzenszwalb_image.argtypes = [ctypes.c_void_p, i32, i32, i32, i32, f64p, i32,
-                                           f32p, i32p, i32, i32p]
-        lib.felzenszwalb_smooth.restype = i32
-        lib.felzenszwalb_smooth.argtypes = [ctypes.c_void_p, i32, i32, i32, i32, f64p, i32,
-                                            f32p]
-        lib.label_components.restype = ctypes.c_int32
-        lib.label_components.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, i32p]
-        lib.slic_postpass.restype = ctypes.c_int32
-        lib.slic_postpass.argtypes = [i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
-                                      i32p]
-        lib.xrai_greedy_rank.restype = ctypes.c_int32
-        lib.xrai_greedy_rank.argtypes = [ctypes.POINTER(ctypes.c_double), i32p,
-                                         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f32p]
-        _lib = lib
-        return lib
+    """The native kernel, built once per source hash; raises on failure."""
+    return _cuda_build.library("felzenszwalb", _SIGNATURES)
 
 
 def _smooth(img: np.ndarray, sigma: float) -> np.ndarray:

@@ -48,8 +48,7 @@ def _display(i, crop):
 
 def test_config_matches_jax():
     for port_cls, jax_cls in [(config.DatasetSpec, jconfig.DatasetSpec),
-                              (config.SegmentConfig, jconfig.SegmentConfig),
-                              (config.EngineConfig, jconfig.EngineConfig)]:
+                              (config.SegmentConfig, jconfig.SegmentConfig)]:
         jax_f = {f.name: f.default for f in dataclasses.fields(jax_cls)}
         for f in dataclasses.fields(port_cls):  # the port keeps the fields it uses
             assert f.name in jax_f and f.default == jax_f[f.name], f.name

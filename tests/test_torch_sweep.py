@@ -229,6 +229,42 @@ def test_resume_equals_an_uninterrupted_run(engines, tmp_path, image_batch):
     assert events(str(tmp_path / "j.jsonl"))[:len(events(jpath))] == events(jpath)
 
 
+@pytest.mark.parametrize("lane,image_batch", [("window", 1), ("window", 2), ("knockout", 1),
+                                              ("bo", 2)])
+def test_journal_event_keys_in_the_jax_packages_order(engines, tmp_path, lane, image_batch):
+    """Every journal line a sweep writes (the config stamp, image_done,
+    skip_misclassified, image_failed and, in a flush of two images of
+    different shapes, batch_failed) carries the JAX package's keys in the
+    JAX package's order, event for event."""
+    from network_interpretation_imagenet_tpu.config import BOConfig as JBOConfig
+    from network_interpretation_imagenet_tpu_torch.config import BOConfig
+
+    engine, jengine, items = engines
+    items = list(items)
+    if image_batch > 1:  # the last flush stacks 64^2 and 48^2: it fails as a batch
+        items.append((items[3][0][:48, :48], None, None))
+    runs = {}
+    for name, mod, eng, seg_cfg, bo_cfg, journal in (
+            ("port", sweep, engine, SegmentConfig(), BOConfig(n_iters=2, n_pre_samples=2),
+             SweepJournal),
+            ("jax", jsweep, jengine, JSegmentConfig(), JBOConfig(n_iters=2, n_pre_samples=2),
+             jjournal.SweepJournal)):
+        path = str(tmp_path / f"{name}.jsonl")
+        j = journal(path, config={"lane": lane})
+        if lane == "bo":
+            mod.bo_saliency_sweep(eng, items, seg_cfg, bo_cfg, image_batch=image_batch, seed=1,
+                                  journal=j)
+        else:
+            mod.saliency_sweep(eng, items, seg_cfg, num_mask_samples=K, image_batch=image_batch,
+                               mode=lane, seed=1, journal=j)
+        j.close()
+        runs[name] = [json.loads(line) for line in open(path) if line.strip()]
+    assert [list(ev) for ev in runs["port"]] == [list(ev) for ev in runs["jax"]]
+    assert {ev["event"] for ev in runs["port"]} == (
+        {"config", "image_done", "skip_misclassified", "image_failed"}
+        | ({"batch_failed"} if image_batch > 1 else set()))
+
+
 # --- BO sweep -----------------------------------------------------------------
 
 
