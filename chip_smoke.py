@@ -135,10 +135,16 @@ kernel against its plain PyTorch version on the card:
      flushes' batched predicts at B = 4 and 12 through B2 against the plain
      path (within 0.05 x max |logit|, as in [main]); streaming windows (1024 masks; each row against the per-image path on
      the same host-sampled starts: target, segments, survival and heatmap
-     exact), image_batch=4 windows (bf16 agreement with streaming printed),
+     exact), the same streaming sweep under
+     torch.cuda.set_sync_debug_mode("error") from each image's segmentation
+     to the end of its dispatch (nothing may raise; rows equal),
+     image_batch=4 windows (bf16 agreement with streaming printed),
      knockouts streaming and at image_batch=4, a journal cut after 3 images
      and resumed (rows and heatmaps equal the uninterrupted run's), the
-     device idle share of one streaming sweep, f32 batched rows against
+     device idle share of one streaming sweep and the share of its collects
+     that found their image done (``ready``), then two Inception-v3 images
+     at 299^2 streamed the same way (rows equal to the per-image path, no
+     sync from segmentation to dispatch, idle and ready shares), f32 batched rows against
      streaming rows (exact), the BO sweep at image_batch=4 (agreement with
      single-image calls printed), RISE and input-gradient attribution
      sweeps, and the CLI's window, --bo and --attribute rise lanes (4
@@ -1541,6 +1547,42 @@ def wide_chains(smi):
     torch.cuda.empty_cache()
 
 
+def sync_free_sweep(engine, data, seg_cfg, **kw):
+    """One streaming sweep with ``torch.cuda.set_sync_debug_mode("error")``
+    on from each image's segmentation to the end of its dispatch, and off in
+    the collect, which waits by design: a synchronising call there fails the
+    image, and this raises with the error the sweep logged."""
+    import io
+
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.saliency import sweep
+    from network_interpretation_imagenet_tpu_torch.utils.logging import PhaseLogger
+
+    segment, collect = sweep.segment_image, engine.collect
+
+    def checked_segment(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        return segment(*args, **kwargs)
+
+    def unchecked_collect(handle):
+        torch.cuda.set_sync_debug_mode(0)
+        return collect(handle)
+
+    out = io.StringIO()
+    sweep.segment_image, engine.collect = checked_segment, unchecked_collect
+    try:
+        res = sweep.saliency_sweep(engine, data, seg_cfg, logger=PhaseLogger(out), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        sweep.segment_image, engine.collect = segment, collect
+    if res.images_failed or res.images_explained != len(data):
+        failed = [line for line in out.getvalue().splitlines() if "image_failed" in line]
+        raise AssertionError(f"sweep under sync debug mode: {res.images_explained} of "
+                             f"{len(data)} explained; {failed}")
+    return res
+
+
 def sweep_phase(engine, smi, by_path):
     """The val-set sweep's lanes at ResNet-101 224 bf16 (see the module
     docstring, 20)."""
@@ -1561,7 +1603,18 @@ def sweep_phase(engine, smi, by_path):
     from network_interpretation_imagenet_tpu_torch.saliency.bo_pipeline import bo_window_saliency
     from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
     from network_interpretation_imagenet_tpu_torch.saliency.journal import SweepJournal
+    from network_interpretation_imagenet_tpu_torch.models import create_model
     from network_interpretation_imagenet_tpu_torch.segment.common import segment_image
+    from network_interpretation_imagenet_tpu_torch.utils import logging as trace
+
+    def ready_share():
+        """The share of the traced sweep's collects whose image was done as
+        the collect began (``sweep.collect``'s ``ready``)."""
+        ready = [sp.attrs["ready"] for sp in trace.spans()
+                 if sp.name == "sweep.collect" and sp.attrs and "ready" in sp.attrs]
+        trace.clear()
+        return (f"collects ready {np.mean(ready):.3f} of {len(ready)}" if ready
+                else "no collect carried ready")
 
     data = []
     for i in range(SWEEP_IMAGES):
@@ -1604,23 +1657,32 @@ def sweep_phase(engine, smi, by_path):
                      f"per image, launches " + json.dumps(by_path[path]))
         return res
 
+    def as_per_image(eng, images, res, name):
+        """Each streaming row against the per-image path: the same
+        host-sampled starts (RandomState(SEED + index)) through
+        eval_window_masks; target, segments, survival and heatmap exact."""
+        for row in res.per_image:
+            i = row["index"]
+            seg = segment_image(aggregate.normalize_to_uint8_np(images[i][0]), seg_cfg)
+            s = int(seg.max()) + 1
+            width = int(0.4 * s)
+            first = masking.sample_window_starts_host(SEED + i, NUM_SAMPLES, s, width)
+            target = eng.predict_one(images[i][0])[0]
+            r = eng.eval_window_masks(images[i][0], seg, first, width, target)
+            heat = aggregate.summed_superpixel_labels_np(seg, first, width, r.survived)
+            if (row["target"], row["num_segments"], row["survival"]) != (
+                    target, s, float(np.mean(r.survived))) or not np.array_equal(
+                    heat, res.heatmaps[i]):
+                raise AssertionError(f"{name}: image {i}'s row differs from the per-image path")
+
     stream = run("sweep_window_stream", lambda: sweep.saliency_sweep(engine, data, seg_cfg, **kw),
                  n * chunks, n * (1 + chunks) * 4)
-    # Each row against the per-image path: the same host-sampled starts
-    # (RandomState(SEED + index)) through eval_window_masks.
-    for row in stream.per_image:
-        i = row["index"]
-        seg = segment_image(aggregate.normalize_to_uint8_np(data[i][0]), seg_cfg)
-        s = int(seg.max()) + 1
-        width = int(0.4 * s)
-        first = masking.sample_window_starts_host(SEED + i, NUM_SAMPLES, s, width)
-        target = engine.predict_one(data[i][0])[0]
-        r = engine.eval_window_masks(data[i][0], seg, first, width, target)
-        heat = aggregate.summed_superpixel_labels_np(seg, first, width, r.survived)
-        if (row["target"], row["num_segments"], row["survival"]) != (
-                target, s, float(np.mean(r.survived))) or not np.array_equal(
-                heat, stream.heatmaps[i]):
-            raise AssertionError(f"sweep stream: image {i}'s row differs from the per-image path")
+    as_per_image(engine, data, stream, "sweep stream")
+    checked = sync_free_sweep(engine, data, seg_cfg, **kw)
+    if rows(checked) != rows(stream):
+        raise AssertionError("sweep stream under the sync check: rows differ")
+    lines.append(f"sync debug mode 'error' from each image's segmentation to the end of its "
+                 f"dispatch: {n} images, nothing raised")
     batch = run("sweep_window_batch", lambda: sweep.saliency_sweep(
         engine, data, seg_cfg, image_batch=SWEEP_BATCH, **kw), n * chunks,
         (flushes + n * chunks) * 4)
@@ -1652,9 +1714,34 @@ def sweep_phase(engine, smi, by_path):
                              "uninterrupted run")
     lines.append("journal cut after 3 images and resumed: rows and heatmaps equal the "
                  "uninterrupted run's")
+    trace.clear()
     wall, busy = busy_ms(lambda: sweep.saliency_sweep(engine, data, seg_cfg, **kw))
     lines.append(f"one streaming sweep under the profiler: wall {wall:.1f} ms, device busy "
-                 f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+                 f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ready_share()}")
+
+    # Inception-v3 at 299^2 (the module plan, no B2): two images streamed,
+    # the stretch from segmentation to dispatch free of syncs, and each row
+    # equal to the per-image path.
+    inc = create_model("inception_v3", "imagenet", dtype=torch.bfloat16)
+    e_inc = SaliencyEngine(inc, inc.init(SEED), mask_batch=MASK_BATCH, device="cuda")
+    data_inc = []
+    for i in range(2):
+        u8, gt = synthetic_image(SEED + 30 + i, size=299)
+        data_inc.append((normalize(torch.from_numpy(u8.astype(np.float32) / 255.0),
+                                   IMAGENET_MEAN, IMAGENET_STD).numpy(), None, gt))
+    inc_stream = sweep.saliency_sweep(e_inc, data_inc, seg_cfg, **kw)
+    as_per_image(e_inc, data_inc, inc_stream, "sweep stream inception_v3")
+    inc_checked = sync_free_sweep(e_inc, data_inc, seg_cfg, **kw)
+    if rows(inc_checked) != rows(inc_stream) or any(
+            not np.array_equal(inc_checked.heatmaps[i], inc_stream.heatmaps[i]) for i in range(2)):
+        raise AssertionError("sweep stream inception_v3 under the sync check: rows differ")
+    trace.clear()
+    wall, busy = busy_ms(lambda: sweep.saliency_sweep(e_inc, data_inc, seg_cfg, **kw))
+    lines.append(f"inception_v3 299^2, 2 images: rows equal the per-image path, no sync from "
+                 f"segmentation to dispatch; under the profiler wall {wall:.1f} ms, busy "
+                 f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ready_share()}")
+    del e_inc, inc, inc_stream, inc_checked
+    torch.cuda.empty_cache()
 
     # f32: the batched flush's rows equal the streaming path's exactly.
     e32 = SaliencyEngine(engine.bundle, engine.bundle.init(SEED), mask_batch=MASK_BATCH,

@@ -10,6 +10,13 @@ module in ``compute_dtype``); f32 softmax/argmax give survived,
 preds, prob_target and prob_max. :meth:`SaliencyEngine.collect` then makes
 one device-to-host copy of all chunks' outcomes.
 
+On the card a single image's handle (:class:`Outcomes`) carries an event
+recorded behind its last chunk, and :meth:`SaliencyEngine.collect` waits for
+that event alone: the join and the copy run on a side stream, so work
+queued on the current stream after the image keeps the card busy while the
+host waits. :meth:`SaliencyEngine.upload_async` is the matching upload: from
+pinned memory, with no wait.
+
 Window masks are built by B1 (``ops.masked_batch``): one launch per chunk
 for one image, and one launch per image run of a chunk, into a slice of the
 chunk, on the multi-image grid. Knockout and mask-bank chunks are plain
@@ -67,12 +74,47 @@ def outcomes(logits: torch.Tensor, target) -> torch.Tensor:
                         probs.max(dim=-1).values])
 
 
-def fetch(t: torch.Tensor) -> np.ndarray:
+class Outcomes(list):
+    """The outcome chunks of one image's ``*_async`` call, a list as
+    :meth:`SaliencyEngine.collect` takes it; ``done`` is the event recorded
+    on the stream behind the last chunk (None off the card)."""
+
+    done = None
+
+
+def fetch(t: torch.Tensor, after=None) -> np.ndarray:
     """A tensor on any device as a numpy array: from the card, one
-    device-to-host copy that waits for the stream, traced as span
-    ``engine.fetch``."""
+    device-to-host copy, traced as span ``engine.fetch``. It waits for the
+    whole stream, or with ``after`` (a CUDA event recorded behind ``t``) for
+    that event alone (:func:`_fetch_after`)."""
     with trace.span("engine.fetch"):
-        return t.detach().cpu().numpy()
+        if after is None:
+            return t.detach().cpu().numpy()
+        return _fetch_after([t.detach()], after)
+
+
+_COPY_STREAMS: dict = {}   # device -> the side stream event-gated copies run on
+
+
+def _fetch_after(chunks: list, event) -> np.ndarray:
+    """``chunks`` (one tensor, or several joined along dim 1) in host memory
+    once ``event`` has completed. The join and the copy into pinned memory
+    run on the device's side stream behind that event alone, and the host
+    waits for the side stream only, so work queued on the current stream
+    after the event keeps running. The chunks stay referenced until the side
+    stream is done with them, so the caching allocator needs no
+    ``record_stream``."""
+    device = chunks[0].device
+    stream = _COPY_STREAMS.get(device)
+    if stream is None:
+        stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(event)
+        t = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+    stream.synchronize()
+    return host.numpy()
 
 
 class SaliencyEngine:
@@ -103,13 +145,33 @@ class SaliencyEngine:
         """A host array as numpy ``dtype``, or a tensor as the same torch
         dtype, contiguous on the engine's device. A copy from host memory (a
         synchronising one from pageable memory to the card) is traced as
-        span ``engine.upload``."""
-        if isinstance(array, torch.Tensor) and array.device.type != "cpu":
+        span ``engine.upload``; a tensor on the engine's device needs none."""
+        if isinstance(array, torch.Tensor) and (array.device.type != "cpu"
+                                                or self.device.type == "cpu"):
             return array.to(self.device, _TORCH_DTYPE[np.dtype(dtype)]).contiguous()
         with trace.span("engine.upload"):
             if not isinstance(array, torch.Tensor):
                 array = torch.from_numpy(np.ascontiguousarray(array, dtype))
             return array.to(self.device, _TORCH_DTYPE[np.dtype(dtype)]).contiguous()
+
+    def upload_async(self, array, dtype) -> torch.Tensor:
+        """A host array as a contiguous tensor of numpy ``dtype`` on the
+        engine's device, with no wait: on the card the copy runs from pinned
+        memory (the caching host allocator keeps the pinned block until the
+        copy has run), so it is no ``engine.upload`` span."""
+        t = torch.from_numpy(np.ascontiguousarray(array, dtype))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _outcomes(self, outs: List[torch.Tensor]) -> Outcomes:
+        """One image's outcome chunks as an :class:`Outcomes` handle, on the
+        card with an event recorded behind them on the current stream."""
+        handle = Outcomes(outs)
+        if self.device.type == "cuda":
+            handle.done = torch.cuda.Event()
+            handle.done.record(torch.cuda.current_stream(self.device))
+        return handle
 
     @torch.inference_mode()
     def folded_logits(self, variables, images: torch.Tensor) -> torch.Tensor:
@@ -144,9 +206,10 @@ class SaliencyEngine:
 
     @torch.inference_mode()
     def eval_window_masks_async(self, image, segments, firsts, width: int, target):
-        """Enqueue K window-mask evaluations; returns a handle for :meth:`collect`.
-        ``target`` is an int or a device tensor of one target (the argmax of
-        :meth:`predict_logits_device`, never read by the host)."""
+        """Enqueue K window-mask evaluations; returns an :class:`Outcomes`
+        handle for :meth:`collect`. ``target`` is an int or a device tensor of
+        one target (the argmax of :meth:`predict_logits_device`, never read
+        by the host)."""
         image_t = self._to_device(image, np.float32)
         seg_t = self._to_device(segments, np.int32)
         firsts_t = self._to_device(firsts, np.int32)
@@ -156,7 +219,7 @@ class SaliencyEngine:
             imgs = masked_batch(image_t, seg_t, firsts_t[off:off + self.mask_batch],
                                 int(width), self.compute_dtype)
             outs.append(outcomes(self.model(imgs), target))
-        return outs
+        return self._outcomes(outs)
 
     @torch.inference_mode()
     def masked_outcomes(self, images: torch.Tensor, target) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,12 +231,19 @@ class SaliencyEngine:
         return out[2], out[0] > 0.5
 
     def collect(self, handle) -> MaskEvalResult:
-        """Wait for an ``*_async`` handle: one device-to-host copy."""
+        """Wait for an ``*_async`` handle: one device-to-host copy, behind
+        the handle's event alone where it has one (:func:`_fetch_after`),
+        else behind the whole stream."""
         if not handle:
             z = np.zeros(0)
             return MaskEvalResult(z.astype(bool), z.astype(np.int32),
                                   z.astype(np.float32), z.astype(np.float32))
-        out = fetch(torch.cat(handle, dim=1))
+        done = getattr(handle, "done", None)
+        if done is None:
+            out = fetch(torch.cat(handle, dim=1))
+        else:
+            with trace.span("engine.fetch"):
+                out = _fetch_after(handle, done)
         return MaskEvalResult(survived=out[0] > 0.5, preds=out[1].astype(np.int32),
                               prob_target=out[2].copy(), prob_max=out[3].copy())
 
@@ -183,13 +253,14 @@ class SaliencyEngine:
         return self.collect(self.eval_knockout_masks_async(image, segments, knock_ids, target))
 
     def eval_knockout_masks_async(self, image, segments, knock_ids, target):
-        """Enqueue K knockout-mask evaluations (int32[K, M] or [K] ids);
-        returns a handle for :meth:`collect`. This is the multi-image grid
-        with N = 1; ``target`` is an int or a device tensor of one target."""
-        ids = np.asarray(knock_ids, np.int32)
+        """Enqueue K knockout-mask evaluations (int32[K, M] or [K] ids, host
+        or device); returns an :class:`Outcomes` handle for :meth:`collect`.
+        This is the multi-image grid with N = 1; ``target`` is an int or a
+        device tensor of one target."""
+        ids = _ids(knock_ids)
         targets = target.reshape(1) if isinstance(target, torch.Tensor) else [target]
-        return self.eval_knockout_masks_multi_async(
-            image[None], segments[None], ids.reshape(1, ids.shape[0], -1), targets)[0]
+        return self._outcomes(self.eval_knockout_masks_multi_async(
+            image[None], segments[None], ids.reshape(1, ids.shape[0], -1), targets)[0])
 
     def _targets(self, targets) -> torch.Tensor:
         """int64[N] targets on the device, from host values or a device tensor
@@ -202,12 +273,12 @@ class SaliencyEngine:
     @torch.inference_mode()
     def eval_knockout_masks_multi_async(self, images, segments, knock_ids, targets):
         """Enqueue the N*K knockout grid: images f32[N, H, W, C] (host or
-        device), segments int32[N, H, W], knock_ids int32[N, K, M], targets
-        [N] (host or device). The grid is flattened image-major and cut into
-        ``mask_batch`` chunks; each chunk's [mask_batch, H, W] masks are
-        built on the device and dropped after its forward. Returns
+        device), segments int32[N, H, W], knock_ids int32[N, K, M] and
+        targets [N] (host or device). The grid is flattened image-major and
+        cut into ``mask_batch`` chunks; each chunk's [mask_batch, H, W] masks
+        are built on the device and dropped after its forward. Returns
         ``(handle, n, k)`` for :meth:`collect_multi`."""
-        ids = np.asarray(knock_ids, np.int32)
+        ids = _ids(knock_ids)
         n, k, m = ids.shape
         images_t = self._to_device(images, np.float32)
         segs_t = self._to_device(segments, np.int32)
@@ -283,6 +354,11 @@ class SaliencyEngine:
             imgs = masking.apply_masks(image_t, chunk).to(self.compute_dtype)
             outs.append(outcomes(self.model(imgs), int(target)))
         return self.collect(outs)
+
+
+def _ids(knock_ids):
+    """Knockout ids as they came if a tensor, else as an int32 array."""
+    return knock_ids if isinstance(knock_ids, torch.Tensor) else np.asarray(knock_ids, np.int32)
 
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,

@@ -9,14 +9,21 @@ skipped misclassified images and failures counted, not fatal, and a
 crash-safe journal (``saliency.journal``).
 
 The host and the card overlap. CUDA launches return before the card has
-run them, so a sweep dispatches image i's masked forwards, segments image
-i+1 on the host while they run, and reads image i's outcomes (the one
-device-to-host copy that waits) only after dispatching image i+1. The
+run them, so the streaming sweep segments image i+1 on the host while image
+i's masked forwards run, uploads image i+1 from pinned memory without a
+wait, dispatches its prediction and masked forwards, and only then collects
+image i. On the card that collect waits for image i's own event (recorded
+behind its last chunk) and copies on a side stream, so image i+1's work
+stays queued and the card runs it through image i's finish and image i+2's
+segmentation; an image's two waits are its outcomes and its logits. The
 window masks of every chunk are built by B1 and every masked forward runs
-the engine's folded net, whose stride-1 Bottleneck stages are B2 chains.
+the engine's inference plan (for an ImageNet ResNet the folded net, whose
+stride-1 Bottleneck stages are B2 chains).
 The streaming sweep's stages are spans of the tracer (``utils.logging``):
 ``sweep.segment``, ``sweep.predict``, ``sweep.dispatch``, ``sweep.collect``
-and ``sweep.finish``, each with the image's index as its request id.
+and ``sweep.finish``, each with the image's index as its request id;
+``sweep.collect`` carries ``ready`` on the card: whether the image's event
+had completed as the collect began (the host was the slower side).
 
 The reference aborts the whole run on the first misclassified image
 (``bayesian_active_learning_imagenet.py:221``); the sweep skips and records
@@ -331,7 +338,8 @@ def saliency_sweep(
     prediction, targets and masked forwards dispatched with the target left
     on the device, and its outcomes collected one image behind, where the
     misclassification skip is decided (a misclassified image wastes its
-    masked forwards; the device queue never drains). ``image_batch`` > 1
+    masked forwards; the device queue never drains: the collect waits for
+    that image's event, not for the stream). ``image_batch`` > 1
     (same-shape images) flushes that many images at once: one upload, one
     batched segmentation (SLIC on the device), one batched prediction and
     one multi-image mask grid (``eval_{window,knockout}_masks_multi_async``,
@@ -391,14 +399,17 @@ def saliency_sweep(
     inflight_batch = None           # batched path: one dispatched flush
 
     def collect_one():
-        """Fetch the oldest in-flight image's outcomes and finalize it; the
-        misclassification skip is decided here, from logits that are long
-        computed."""
+        """Fetch the oldest in-flight image's outcomes and logits, behind its
+        own event and not behind the next image's work, and finalize it; the
+        misclassification skip is decided here."""
         fl = inflight.popleft()
+        done = fl["handle"].done   # the image's event, on the card
         try:
-            with trace.span("sweep.collect", rid=fl["i"]):
+            with trace.span("sweep.collect", rid=fl["i"]) as open_span:
+                if open_span is not None and done is not None:
+                    open_span.annotate(ready=done.query())
                 r = engine.collect(fl["handle"])
-                pred = int(_host(fl["logits"])[0].argmax())
+                pred = int(fetch(fl["logits"], after=done)[0].argmax())
             if skip(fl["i"], pred, fl["label"]):
                 return
             with trace.span("sweep.finish", rid=fl["i"]):
@@ -521,19 +532,22 @@ def saliency_sweep(
                                                        seed + i, target, plan["firsts"])
                 finish(i, target, out.num_segments, out.heatmap, out.eval.survived, t0, image)
                 continue
-            # Prediction, argmax (a device scalar, so the masked forwards
-            # need no fetch) and masked forwards are all enqueued; the image
-            # is collected one behind.
+            # Uploads, prediction, argmax (a device scalar, so the masked
+            # forwards need no fetch) and masked forwards are all enqueued
+            # with no wait; the image is collected one behind.
             with trace.span("sweep.predict", rid=i):
-                logits_dev = engine.predict_logits_device(image[None])
+                image_t = engine.upload_async(image, np.float32)
+                logits_dev = engine.predict_logits_device(image_t[None])
                 target_dev = torch.argmax(logits_dev[0])
             with trace.span("sweep.dispatch", rid=i):
+                seg_t = engine.upload_async(seg, np.int32)
                 if is_knockout:
-                    handle = engine.eval_knockout_masks_async(image, seg, plan["ids"],
-                                                              target_dev)
+                    handle = engine.eval_knockout_masks_async(
+                        image_t, seg_t, engine.upload_async(plan["ids"], np.int32), target_dev)
                 else:
-                    handle = engine.eval_window_masks_async(image, seg, plan["firsts"],
-                                                            plan["width"], target_dev)
+                    handle = engine.eval_window_masks_async(
+                        image_t, seg_t, engine.upload_async(plan["firsts"], np.int32),
+                        plan["width"], target_dev)
             inflight.append({"i": i, "label": label, "logits": logits_dev, "seg": seg, "s": s,
                              "plan": plan, "handle": handle, "t0": t0, "image": image})
             while len(inflight) > 1:

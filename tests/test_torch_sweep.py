@@ -133,6 +133,71 @@ def test_saliency_sweep_matches_jax(engines, image_batch, mode, method):
     assert all("iou" in r for r in got.per_image)
 
 
+@pytest.mark.parametrize("mode", ["window", "knockout"])
+def test_streaming_lane_hands_the_engine_device_tensors(engines, mode):
+    """The streaming lane through a recording engine, as the benchmark's
+    harness wraps it: one ``collect`` per dispatched image with its K
+    outcomes, and the prediction and the masked forwards given tensors on
+    the engine's device (the lane's own uploads), never host arrays."""
+    engine, _, items = engines
+    calls = {"collect": [], "predict": [], "dispatch": []}
+    dispatch_name = f"eval_{mode}_masks_async"
+    originals = {n: getattr(engine, n) for n in ("collect", "predict_logits_device",
+                                                 dispatch_name)}
+
+    def record(name, fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[name].append(out if name == "collect" else args)
+            return out
+        return wrapped
+
+    engine.collect = record("collect", originals["collect"])
+    engine.predict_logits_device = record("predict", originals["predict_logits_device"])
+    setattr(engine, dispatch_name, record("dispatch", originals[dispatch_name]))
+    try:
+        res = sweep.saliency_sweep(engine, items, SegmentConfig(), num_mask_samples=K,
+                                   mode=mode, num_knockout=2, seed=3)
+    finally:
+        for n in originals:
+            delattr(engine, n)
+    dispatched = res.images_explained + res.images_skipped_misclassified
+    assert (res.images_explained, dispatched) == (2, 3)
+    assert len(calls["collect"]) == len(calls["predict"]) == len(calls["dispatch"]) == dispatched
+    assert all(len(r.survived) == K for r in calls["collect"])
+    for args in calls["predict"] + [a[:3] for a in calls["dispatch"]]:
+        assert all(isinstance(a, torch.Tensor) and a.device == engine.device
+                   for a in args if not isinstance(a, int))
+    assert [a[0].shape for a in calls["predict"]] == [(1, 64, 64, 3)] * dispatched
+
+
+@pytest.mark.parametrize("mode", ["window", "knockout", "empty"])
+def test_outcomes_handle_collects_as_the_plain_list(engines, mode):
+    """An ``Outcomes`` handle (off the card, no event) collects to the
+    same result as the plain list of its chunks, the empty one too."""
+    from network_interpretation_imagenet_tpu_torch.saliency.engine import Outcomes
+
+    engine, _, items = engines
+    image = items[0][0]
+    seg = np.asarray(sweep.segment_image(sweep._display(image), SegmentConfig()), np.int32)
+    s = int(seg.max()) + 1
+    if mode == "window":
+        handle = engine.eval_window_masks_async(image, seg, np.arange(K, dtype=np.int32) % s,
+                                                max(1, s // 3), 1)
+    elif mode == "knockout":
+        handle = engine.eval_knockout_masks_async(
+            image, seg, (np.arange(2 * K, dtype=np.int32) % s).reshape(K, 2), 1)
+    else:
+        handle = Outcomes()
+    assert type(handle) is Outcomes and handle.done is None
+    assert len(handle) == (0 if mode == "empty" else 2)   # a chunk of 8 and the remainder
+    got, want = engine.collect(handle), engine.collect(list(handle))
+    for field in ("survived", "preds", "prob_target", "prob_max"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and a.shape == b.shape == ((0,) if mode == "empty" else (K,))
+        np.testing.assert_array_equal(a, b)
+
+
 def test_fidelity_rows_match_jax(engines):
     engine, jengine, items = engines
     kw = dict(num_mask_samples=K, fidelity_steps=4, seed=1)

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from network_interpretation_imagenet_tpu_torch.config import BOConfig, SegmentConfig
 from network_interpretation_imagenet_tpu_torch.models import ModelBundle, ResNet
 from network_interpretation_imagenet_tpu_torch.saliency import bo_pipeline, sweep
-from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine
+from network_interpretation_imagenet_tpu_torch.saliency.engine import SaliencyEngine, fetch
 from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 from network_interpretation_imagenet_tpu_torch.utils.logging import (
     PhaseLogger,
@@ -25,7 +25,7 @@ from network_interpretation_imagenet_tpu_torch.utils.logging import (
     profiler_trace,
 )
 
-SYNCS_PER_IMAGE = 6   # prediction and 3 mask uploads; outcomes and logits fetched
+SYNCS_PER_IMAGE = 2   # outcomes and logits fetched; the uploads do not wait
 
 
 @pytest.fixture(autouse=True)
@@ -208,7 +208,9 @@ def test_phase_is_a_span_and_keeps_its_line():
 def test_streaming_sweep_traces_each_image(engine):
     """Each image's stages carry its index as the request id (its collect
     too, which runs while the next image is in flight); ``segment`` sits
-    under ``sweep.segment`` and each copy under the stage that made it."""
+    under ``sweep.segment`` and each copy under the stage that made it: the
+    two fetches under ``sweep.collect``, and no ``engine.upload`` (the sweep
+    uploads with ``upload_async``, which does not wait)."""
     images = _images(3)
     trace.enable()
     res = sweep.saliency_sweep(engine, [(im, None, None) for im in images],
@@ -224,14 +226,42 @@ def test_streaming_sweep_traces_each_image(engine):
         (seg,) = _by_name(mine, "segment")
         assert by_id[seg.parent].name == "sweep.segment"
         parents = sorted(by_id[s.parent].name for s in mine if s.name.startswith("engine."))
-        assert parents == ["sweep.collect"] * 2 + ["sweep.dispatch"] * 3 + ["sweep.predict"]
-        assert len(_by_name(mine, "engine.upload")) == 4
+        assert parents == ["sweep.collect"] * 2
+        assert len(_by_name(mine, "engine.upload")) == 0
         assert len(_by_name(mine, "engine.fetch")) == 2
     # The collect of image i runs after image i + 1 is dispatched.
     first = {(s.name, s.rid): s for s in spans}
     assert first[("sweep.collect", 0)].start_ns >= first[("sweep.dispatch", 1)].end_ns
     copies = [s for s in spans if s.name in ("engine.upload", "engine.fetch")]
     assert len(copies) == SYNCS_PER_IMAGE * 3
+
+
+def test_fetch_without_an_event_is_the_plain_copy():
+    """``fetch(t)`` with no ``after=``: the tensor's values, dtype and shape,
+    one ``engine.fetch`` span, the tensor left as it was."""
+    trace.enable()
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4) / 7
+    before = t.clone()
+    got = fetch(t)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == (3, 4)
+    np.testing.assert_array_equal(got, before.numpy())
+    assert torch.equal(t, before)
+    assert [s.name for s in trace.spans()] == ["engine.fetch"]
+
+
+def test_upload_async_and_device_tensors_take_no_upload_span(engine):
+    """``upload_async`` gives a contiguous tensor of the asked dtype on the
+    engine's device with no ``engine.upload`` span, and a tensor already
+    there passes ``_to_device`` without one; a host array still takes one."""
+    trace.enable()
+    seg = np.asfortranarray(np.arange(12, dtype=np.int64).reshape(3, 4))
+    t = engine.upload_async(seg, np.int32)
+    assert t.dtype == torch.int32 and t.device == engine.device and t.is_contiguous()
+    np.testing.assert_array_equal(t.numpy(), seg)
+    assert engine._to_device(t, np.int32) is t
+    assert trace.spans() == []
+    engine._to_device(seg, np.int32)
+    assert [s.name for s in trace.spans()] == ["engine.upload"]
 
 
 def test_fused_bo_request_is_one_tree(engine):
