@@ -37,6 +37,7 @@ from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_plain,
 )
+from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
 
 _RENAME = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
@@ -201,7 +202,17 @@ class FoldedResNet:
     output channels is grouped (ResNeXt); both run every block as torch ops.
     Calling it maps NHWC ``dtype`` images to f32 logits;
     ``plain=True`` runs the chains through their plain version (the
-    comparison the card makes)."""
+    comparison the card makes).
+
+    A call is traced as span ``plan.forward`` (a child of the caller's
+    span, with its request id), as ``ModulePlan``'s is, with attributes
+    ``batch`` (the images) and, once the net has run, ``grouped_convs``
+    (the grouped convolutions launched during the call: 33 for ResNeXt-101,
+    0 for a dense net; read from the process-wide counter
+    ``FoldedResNet.grouped_launches``, which ``_conv`` raises, so forwards
+    that run at once in other threads add theirs)."""
+
+    grouped_launches = 0
 
     def __init__(self, state_dict, stage_sizes: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16, device="cpu") -> None:
@@ -270,9 +281,19 @@ class FoldedResNet:
     def _conv(x, op, relu: bool):
         w, b, stride, padding, groups = op
         y = F.conv2d(x, w, b, stride, padding, groups=groups)
+        if groups > 1:
+            FoldedResNet.grouped_launches += 1
         return torch.relu(y) if relu else y
 
     def __call__(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        with trace.span("plan.forward", batch=x.shape[0]) as open_span:
+            grouped = FoldedResNet.grouped_launches
+            logits = self._forward(x, plain)
+            if open_span is not None:
+                open_span.annotate(grouped_convs=FoldedResNet.grouped_launches - grouped)
+            return logits
+
+    def _forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         chain_fn = bottleneck_chain_plain if plain else bottleneck_chain
         y = x.permute(0, 3, 1, 2)  # NHWC memory, NCHW view: channels_last
         y = max_pool_same(self._conv(y, self.stem, True), 3, 2)

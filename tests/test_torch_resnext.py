@@ -141,3 +141,72 @@ def test_archs_match_the_jax_registry():
             conv2 = module.layer4[0].conv2
             assert conv2.groups == groups, arch
             assert conv2.out_channels == int(512 * base_width / 64) * groups, arch
+
+
+# The folded plan's span: ``plan.forward`` with the batch and the grouped
+# convolutions the call launched (ResNeXt-101's 33 grouped 3x3s, none in a
+# dense net), the logits the same to the bit with the tracer on or off.
+GROUPED_CONVS = {"resnext101_32x8d": 33, "resnet50": 0}
+
+
+@pytest.fixture(scope="module")
+def folded_plans():
+    """Per (arch, dtype), the folded plan of ``arch`` with 10 classes on
+    seeded weights, built once for the tests below."""
+    made = {}
+
+    def get(arch, dtype):
+        if (arch, dtype) not in made:
+            bundle = create_model(arch, num_classes=10)
+            made[arch, dtype] = FoldedResNet(bundle.init(5), bundle.module.stage_sizes, dtype)
+        return made[arch, dtype]
+
+    return get
+
+
+@pytest.fixture
+def tracer():
+    from network_interpretation_imagenet_tpu_torch.utils import logging as trace
+
+    trace.disable()
+    trace.clear()
+    yield trace
+    trace.disable()
+    trace.clear()
+
+
+@pytest.mark.parametrize("arch", sorted(GROUPED_CONVS))
+def test_the_folded_plans_span_counts_its_grouped_convs(folded_plans, tracer, arch):
+    """Two calls under a caller's span at 32^2: one ``plan.forward`` each,
+    the caller's child with its request id, with ``batch`` and
+    ``grouped_convs``."""
+    plan = folded_plans(arch, torch.float32)
+    tracer.enable()
+    with torch.inference_mode(), tracer.span("caller", rid=9):
+        plan(torch.from_numpy(_images(32, n=3)))
+        plan(torch.from_numpy(_images(32, n=1)))
+    caller = next(s for s in tracer.spans() if s.name == "caller")
+    forwards = [s for s in tracer.spans() if s.name == "plan.forward"]
+    assert [s.attrs for s in forwards] == [
+        {"batch": 3, "grouped_convs": GROUPED_CONVS[arch]},
+        {"batch": 1, "grouped_convs": GROUPED_CONVS[arch]}]
+    assert all(s.parent == caller.id and s.rid == 9 for s in forwards)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(GROUPED_CONVS))
+def test_the_folded_plans_logits_are_the_same_traced(folded_plans, tracer, arch, dtype):
+    """Off, the span records nothing and the counter still counts; on or
+    off, the logits are equal to the bit."""
+    plan = folded_plans(arch, dtype)
+    x = torch.from_numpy(_images(32, n=2)).to(dtype)
+    with torch.inference_mode():
+        before = FoldedResNet.grouped_launches
+        off = plan(x)
+        assert tracer.spans() == []
+        assert FoldedResNet.grouped_launches - before == GROUPED_CONVS[arch]
+        tracer.enable()
+        on = plan(x)
+    assert off.dtype == torch.float32 and torch.equal(off, on)
+    (span,) = tracer.spans()
+    assert span.attrs == {"batch": 2, "grouped_convs": GROUPED_CONVS[arch]}
