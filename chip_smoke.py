@@ -6,6 +6,7 @@
     python3 chip_smoke.py --b2                # only B2's checks and timings, both instances (b2_only)
     python3 chip_smoke.py --b1                # only B1's checks and timings (see b1_only)
     python3 chip_smoke.py --pool              # only the build and [pool] (see pool_only)
+    python3 chip_smoke.py --epilogue          # only the build and [epilogue] (see epilogue_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -58,7 +59,8 @@ kernel against its plain PyTorch version on the card:
      instances FFMAs and no tensor-core instruction (no TF32);
   5. the random-window path: Felzenszwalb -> predict_one ->
      random_window_saliency (1024 masks) -> localization_score, with the
-     launch counters reset just before and read just after, then
+     launch counters reset just before and read just after (B1 once a
+     chunk, B2 4 and E1 13 a forward, P1 none), then
      kernel-path vs plain-path logits of the whole model on 32 masked images;
   6. timings of that path: warm masked-forward evals/s and p50 latency;
   7. the BO path (bo_window_saliency, 3 + 10 evaluations), from an empty
@@ -300,6 +302,22 @@ kernel against its plain PyTorch version on the card:
      the kernel and with the library's pools (CUDA events). [zoo]'s
      Inception-v3 paths count 13 launches a forward through counted(),
      every other path 0.
+ 29. [epilogue] (run after [pool]): E1 epilogue_nhwc, the bias, residual
+     and ReLU after each eager convolution of the folded ResNet plan,
+     against its plain twin at every epilogue shape of ResNeXt-101 32x8d
+     and ResNet-101 (as one B=1 forward of each through the plain twin
+     records them), at B = 1 and 256 in bf16 and f32: equal to the bit; the SASS of its four
+     instances holds 16-byte global loads and stores only; an NCHW input
+     raises and launches nothing; each shape at B=256 in bf16 timed (device
+     time) beside its bytes bound, the plain twin (CUDA events) and the
+     library's sequence the plan ran before (the broadcast bias add_, ReLU,
+     the residual add; CUDA events), and the 100 epilogues of a ResNeXt-101
+     forward of 256 and the 13 of a ResNet-101 one summed, at least
+     EPILOGUE_BOUND_SHARE of their bound; one bf16 ResNeXt-101 forward of
+     256 launches E1 100 times, its plan.forward span reads epilogues 100,
+     its logits equal those of plain=True (the plain twin; cuDNN's
+     convolutions alike), and it takes at most EPILOGUE_FORWARD_MS (CUDA
+     events, beside plain=True's); a ResNet-101 forward's span reads 13.
      ``--b1`` runs 1., 2. and 3. alone and then [B1 zoo]: Inception-v3's
      1,024 window masks and knockouts (evals/s as [zoo]) and B1's device
      time in one 1,024-mask window call.
@@ -416,6 +434,9 @@ ZOO_TOL = 0.05               # a bf16 plan vs the plain f32 module: x max |logit
 ZOO_F32_TOL = 1e-4           # the f32 module, card vs CPU: x max |logit|, as [main]'s f32 engine
 PKG = "network_interpretation_imagenet_tpu_torch"
 POOL_FORWARD_MS = 2.5        # [pool]: the 13 pools of a forward of 256, bf16 (library's: ~16.7)
+EPILOGUE_FORWARD_MS = 36.0   # [epilogue]: a ResNeXt-101 forward of 256, bf16 (59.5 before E1)
+EPILOGUE_BOUND_SHARE = 0.8   # [epilogue]: the bytes bound over E1's time, that forward's 100
+E1_PER_DENSE_FORWARD = 13    # E1 a forward of a dense Bottleneck ResNet: the stem, 3 x 4 stage heads
 PARALLEL_IMAGES = 8          # [parallel]: synthetic images of the sweeps, and the multi grid's N
 PARALLEL_MULTI_K = 128
 PARALLEL_F32_K = 256         # the f32 check's windows: one forward of the f32 sweep's chunk
@@ -998,24 +1019,34 @@ def replay_trace(graph, tries=3):
     return wall * 1e3, span, union_ms(spans), groups
 
 
-def counted(by_path, path, fn, want_b1, want_b2, want_p1=0):
+def counted(by_path, path, fn, want_b1, want_b2, want_p1=0, want_e1=None):
     """Runs ``fn`` with the kernels' launch counters set to 0 just before and
     read just after; records them under ``path`` and raises unless they are
-    B1 ``want_b1``, B2 ``want_b2`` and P1 ``want_p1`` (13 a forward of
-    Inception-v3, 0 on every other net)."""
+    B1 ``want_b1``, B2 ``want_b2``, P1 ``want_p1`` (13 a forward of
+    Inception-v3, 0 on every other net) and E1 ``want_e1``: by default
+    E1_PER_DENSE_FORWARD for each 4 B2 launches (a dense Bottleneck ResNet's
+    forward runs a B2 chain in each of its 4 stages); a net without chains
+    gives its own (ResNet-18 17 a forward, ResNeXt-50 49)."""
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import epilogue_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
     from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
 
+    if want_e1 is None:
+        if want_b2 % 4:
+            raise ValueError(f"{path}: B2 {want_b2} is not 4 a forward; give want_e1")
+        want_e1 = want_b2 // 4 * E1_PER_DENSE_FORWARD
     masked_batch.launches = 0
     bottleneck_chain.launches = 0
     pool_nhwc.launches = 0
+    epilogue_nhwc.launches = 0
     result = fn()
     got = {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches,
-           "pool_nhwc": pool_nhwc.launches}
-    if got != {"masked_batch": want_b1, "bottleneck_chain": want_b2, "pool_nhwc": want_p1}:
-        raise AssertionError(f"{path}: launched {got}, want B1 {want_b1}, B2 {want_b2} and "
-                             f"P1 {want_p1}")
+           "pool_nhwc": pool_nhwc.launches, "epilogue_nhwc": epilogue_nhwc.launches}
+    if got != {"masked_batch": want_b1, "bottleneck_chain": want_b2, "pool_nhwc": want_p1,
+               "epilogue_nhwc": want_e1}:
+        raise AssertionError(f"{path}: launched {got}, want B1 {want_b1}, B2 {want_b2}, "
+                             f"P1 {want_p1} and E1 {want_e1}")
     by_path[path] = got
     return result
 
@@ -1419,7 +1450,8 @@ def resnet18_phase(normalized, segments, firsts, width, smi, by_path):
             raise AssertionError(f"the CLIs' default arch is {args.arch}")
         t0 = time.perf_counter()
         payload, result = counted(by_path, "gen_resnet18",
-                                  lambda: quiet(lambda: gen.compute(args)), 1, 0)
+                                  lambda: quiet(lambda: gen.compute(args)), 1, 0,
+                                  want_e1=3 * 17)   # predict, one chunk, the threshold search
         seconds = time.perf_counter() - t0
     levels, keep = payload["levels"], payload["keeps_prediction"]
     if not (np.isfinite(result["out"].heatmap).all() and len(levels) == len(keep) > 0):
@@ -1438,13 +1470,14 @@ def resnext_phase(normalized, segments, firsts, width, smi, by_path):
     x = masked_images(normalized, segments, firsts, width)
     chunks = NUM_SAMPLES // MASK_BATCH
     parts = []
-    for arch, path, chains in (("wide_resnet50_2", "wide_resnet50_2_window", 4),
-                               ("resnext50_32x4d", "resnext50_window", 0)):
+    for arch, path, chains, e1 in (("wide_resnet50_2", "wide_resnet50_2_window", 4, 13),
+                                   ("resnext50_32x4d", "resnext50_window", 0, 1 + 3 * 16)):
         bundle, sd, summary = folded_vs_plain(arch, x)
         engine = SaliencyEngine(bundle, sd, mask_batch=MASK_BATCH, device="cuda")
         target = engine.predict_one(normalized)[0]
         counted(by_path, path, lambda: engine.eval_window_masks(
-            normalized, segments, firsts[:NUM_SAMPLES], width, target), chunks, chains * chunks)
+            normalized, segments, firsts[:NUM_SAMPLES], width, target), chunks, chains * chunks,
+            want_e1=e1 * chunks)
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2409,9 +2442,10 @@ def attr_cli_phase(by_path, calibrated):
     with tempfile.TemporaryDirectory() as tmp:
         args = compare.parse_args(["--synthetic", "--num-images", "2", "--out", tmp])
         t0 = time.perf_counter()
-        # B1: per image one window chunk and the BO host loop's 11 (ResNet-18: no B2).
+        # B1: per image one window chunk and the BO host loop's 11 (ResNet-18: no B2);
+        # E1: 17 in each of ResNet-18's 68 forwards.
         payload = counted(by_path, "cli_compare", lambda: quiet(lambda: compare.compute(args)),
-                          24, 0)
+                          24, 0, want_e1=68 * 17)
         seconds = time.perf_counter() - t0
         ms = payload["methods"]
         if (payload["images_used"] != 2 or len(ms) != 16 or not all(
@@ -2437,8 +2471,9 @@ def attr_cli_phase(by_path, calibrated):
 
         args = attribution_sanity.parse_args(["--synthetic", "--out", tmp])
         t0 = time.perf_counter()
-        payload = counted(by_path, "cli_sanity",
-                          lambda: quiet(lambda: attribution_sanity.compute(args)), 0, 0)
+        payload = counted(by_path, "cli_sanity",   # E1: ResNet-18's prediction
+                          lambda: quiet(lambda: attribution_sanity.compute(args)), 0, 0,
+                          want_e1=17)
         last = {m: rows[-1]["spearman"] for m, rows in payload["methods"].items()}
         if len(payload["stages"]) != 11 or not all(np.isfinite(list(last.values()))):
             raise AssertionError(f"sanity payload {payload}")
@@ -2685,16 +2720,17 @@ def b1_zoo(smi):
     torch.cuda.empty_cache()
 
 
-def sass_p1_accesses(so_path):
+def sass_accesses(so_path, prefix):
     """{kernel symbol: [128-bit global loads, narrower ones, 128-bit global
-    stores, narrower ones]} for every p1_pool_nhwc instance (the three
-    kinds and the max pool's gradient, bf16 and f32) in a built library's
-    SASS."""
+    stores, narrower ones]} for every instance of the kernel ``prefix`` in a
+    built library's SASS (p1_pool_nhwc: the three kinds and the max pool's
+    gradient, bf16 and f32; e1_epilogue_nhwc: with and without a residual,
+    bf16 and f32)."""
     counts, fn = {}, None
     for line in sass_text(so_path).splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "p1_pool_nhwc" in fn:
+            if prefix in fn:
                 counts[fn] = [0, 0, 0, 0]
         elif fn in counts:
             op = next((t for t in line.split() if t.startswith(("LDG", "STG"))), None)
@@ -2737,7 +2773,7 @@ def pool_phase(smi):
     )
     from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
-    accesses = sass_p1_accesses(_cuda_build.so_path("pool_nhwc"))
+    accesses = sass_accesses(_cuda_build.so_path("pool_nhwc"), "p1_pool_nhwc")
     log(f"[pool] pool_nhwc SASS: {len(accesses)} p1_pool_nhwc instances, global [128-bit loads, "
         "narrower, 128-bit stores, narrower] " + json.dumps(sorted(accesses.values())))
     if len(accesses) != 8 or any(a[0] == 0 or a[1] or a[2] == 0 or a[3]
@@ -2896,6 +2932,183 @@ def pool_only() -> int:
     t_start = time.perf_counter()
     _, smi = device_and_build()
     pool_phase(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
+def epilogue_phase(smi):
+    """29. [epilogue]: E1 against its plain twin at every epilogue shape of
+    ResNeXt-101 and ResNet-101, its timings, and the folded plan's launches
+    and logits. Returns (the kernel, bound, plain and library ms of the 100
+    epilogues of a ResNeXt-101 forward of 256 in bf16, and the records of
+    every shape)."""
+    import torch
+
+    from network_interpretation_imagenet_tpu_torch.models import FoldedResNet, create_model
+    from network_interpretation_imagenet_tpu_torch.ops import _cuda_build
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import (
+        epilogue_nhwc,
+        epilogue_nhwc_plain,
+    )
+    from network_interpretation_imagenet_tpu_torch.utils import logging as trace
+
+    accesses = sass_accesses(_cuda_build.so_path("epilogue_nhwc"), "e1_epilogue_nhwc")
+    log(f"[epilogue] epilogue_nhwc SASS: {len(accesses)} e1_epilogue_nhwc instances, global "
+        "[128-bit loads, narrower, 128-bit stores, narrower] "
+        + json.dumps(sorted(accesses.values())))
+    if len(accesses) != 4 or any(a[0] == 0 or a[1] or a[2] == 0 or a[3]
+                                 for a in accesses.values()):
+        raise AssertionError(f"E1's library: an instance with accesses narrower than 16 bytes "
+                             f"{accesses}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # Each net's epilogues, (H, W, C, residual) in order, as one bf16 forward
+    # at 224^2 through the plain twin runs them.
+    plans, forwards = {}, {}
+    for arch in ("resnext101_32x8d", "resnet101"):
+        bundle = create_model(arch, "imagenet", dtype=torch.bfloat16)
+        plan = plans[arch] = FoldedResNet(bundle.init(SEED), bundle.module.stage_sizes,
+                                          torch.bfloat16, dev)
+        seen = forwards[arch] = []
+
+        def spy(y, bias, res=None, seen=seen):
+            seen.append((y.shape[2], y.shape[3], y.shape[1], res is not None))
+            return epilogue_nhwc_plain(y, bias, res)
+
+        plan._epilogue = lambda device, plain, spy=spy: spy
+        with torch.inference_mode():
+            plan(torch.zeros((1, 224, 224, 3), dtype=torch.bfloat16, device=dev))
+        del plan._epilogue, bundle
+    shapes = list(dict.fromkeys(sh for fwd in forwards.values() for sh in fwd))
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    by_shape, timed = [], {}
+    for h, w, c, residual in shapes:
+        for batch in (1, MASK_BATCH):
+            for dt in (torch.bfloat16, torch.float32):
+                def make():
+                    t = torch.randn((batch, c, h, w), generator=gen, device=dev).to(dt)
+                    return t.contiguous(memory_format=torch.channels_last)
+
+                y, res = make(), make() if residual else None
+                bias = torch.randn(c, generator=gen, device=dev)
+                before = epilogue_nhwc.launches
+                got = epilogue_nhwc(y.clone(), bias, res)
+                want = epilogue_nhwc_plain(y.clone(), bias, res)
+                torch.cuda.synchronize()
+                launched = epilogue_nhwc.launches - before
+                same = torch.equal(got.view(bits[dt]), want.view(bits[dt]))
+                if launched != 1 or not same:
+                    raise AssertionError(f"[epilogue] {tuple(y.shape)} {dt} residual {residual}: "
+                                         f"{launched} launches, equal to the plain twin's bits "
+                                         f"{same}, max err {(got - want).abs().max().item()}")
+                rec = {"shape": [batch, h, w, c], "residual": residual, "dtype": str(dt),
+                       "bit_equal": same}
+                if batch == MASK_BATCH and dt == torch.bfloat16:
+                    nbytes = batch * h * w * c * y.element_size() * (3 if residual else 2) + 4 * c
+                    rec["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+                    rec["ms"] = kernel_ms(lambda: epilogue_nhwc(y, bias, res), 20,
+                                          "e1_epilogue_nhwc")
+                    rec["plain_ms"] = time_ms(lambda: epilogue_nhwc_plain(y, bias, res), 20)
+                    b16 = bias.to(dt).view(1, -1, 1, 1)
+                    rec["library_ms"] = time_ms(
+                        (lambda: torch.relu(y.add_(b16))) if res is None else
+                        (lambda: torch.relu(y.add_(b16) + res)), 20)
+                    timed[(h, w, c, residual)] = rec
+                by_shape.append(rec)
+                log(f"[epilogue] {smi}: {batch}x{h}x{w}x{c}{' + residual' if residual else ''} "
+                    f"{dt}: bit-equal to the plain twin"
+                    + (f"; kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                       f"({rec['bound_ms'] / rec['ms']:.3f} of bound), plain {rec['plain_ms']:.4f}"
+                       f" ms, library {rec['library_ms']:.4f} ms" if "ms" in rec else ""))
+                del y, res, got, want
+        torch.cuda.empty_cache()
+
+    # On the card an NCHW input raises, naming its shape; nothing launches.
+    x = torch.randn((2, 64, 9, 9), generator=gen, device=dev)
+    before = epilogue_nhwc.launches
+    try:
+        epilogue_nhwc(x, torch.zeros(64, device=dev))
+    except ValueError as e:
+        if "(2, 64, 9, 9)" not in str(e):
+            raise
+    else:
+        raise AssertionError("[epilogue] an NCHW input on the card did not raise")
+    if epilogue_nhwc.launches != before:
+        raise AssertionError("[epilogue] an NCHW input launched the kernel")
+
+    totals = {}
+    for arch, fwd in forwards.items():
+        totals[arch] = {k: sum(timed[sh][k] for sh in fwd)
+                        for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        t = totals[arch]
+        log(f"[epilogue] {smi}: the {len(fwd)} epilogues of a {arch} forward of {MASK_BATCH}, "
+            f"bf16: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_ms'] / t['ms']:.3f} of bound), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms")
+    share = totals["resnext101_32x8d"]["bound_ms"] / totals["resnext101_32x8d"]["ms"]
+    if share < EPILOGUE_BOUND_SHARE:
+        raise AssertionError(f"[epilogue] ResNeXt-101's epilogues at {share:.3f} of their bound, "
+                             f"below {EPILOGUE_BOUND_SHARE}")
+
+    # The folded plans: a bf16 forward's span counts its launches; ResNeXt-101's
+    # logits against plain=True's, and its forward of 256 timed both ways.
+    img = torch.randn((MASK_BATCH, 224, 224, 3), generator=gen, device=dev).to(torch.bfloat16)
+    parts = []
+    for arch, fwd in forwards.items():
+        plan = plans.pop(arch)
+        with torch.inference_mode():
+            trace.clear()
+            trace.enable()
+            before = epilogue_nhwc.launches
+            try:
+                got = plan(img)
+            finally:
+                trace.disable()
+            launched = epilogue_nhwc.launches - before
+            spans = [sp.attrs.get("epilogues") for sp in trace.spans()
+                     if sp.name == "plan.forward"]
+            trace.clear()
+            e1_ms = time_ms(lambda: plan(img), 5)
+            if launched != len(fwd) or spans != [len(fwd)]:
+                raise AssertionError(f"[epilogue] {arch}: {launched} launches a forward, spans' "
+                                     f"epilogues {spans}, want {len(fwd)}")
+            part = (f"{arch} bf16 plan at 224^2: {launched} launches a forward of {MASK_BATCH}, "
+                    f"span epilogues {spans}; forward {e1_ms:.3f} ms (CUDA events)")
+            if arch == "resnext101_32x8d":
+                want = plan(img, plain=True)
+                plain_ms = time_ms(lambda: plan(img, plain=True), 5)
+                err = (got - want).abs().max().item()
+                part += (f", plain=True {plain_ms:.3f} ms; logits vs plain=True equal "
+                         f"{torch.equal(got, want)}, max err {err:.4g} (max |logit| "
+                         f"{want.abs().max().item():.4g})")
+                if not torch.isfinite(got).all() or not torch.equal(got, want):
+                    raise AssertionError(f"[epilogue] {arch}: logits vs plain=True err {err}")
+                if e1_ms > EPILOGUE_FORWARD_MS:
+                    raise AssertionError(f"[epilogue] {arch}: a forward of {MASK_BATCH} takes "
+                                         f"{e1_ms:.3f} ms, above {EPILOGUE_FORWARD_MS}")
+        parts.append(part)
+        del plan, got
+        torch.cuda.empty_cache()
+    log(f"[epilogue] {smi}: " + "; ".join(parts))
+    del img
+    torch.cuda.empty_cache()
+    return totals["resnext101_32x8d"], by_shape
+
+
+def epilogue_only() -> int:
+    """``--epilogue``: only the build and [epilogue] (1., 2., 29.), for a
+    first check of E1, or to compare two trees of the port on one card in
+    one call. Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, smi = device_and_build()
+    epilogue_phase(smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     return 0
 
@@ -3132,24 +3345,23 @@ HANDOFF_MASKS = 1024         # the trained checkpoint's window masks, one chunk 
 
 
 def chain_inputs(plan, x):
-    """The folded net's torch blocks run on NHWC ``x`` with the chains'
-    plain version: [(each stage's chain input NHWC, its chain weights)]."""
+    """The folded net's eager blocks run on NHWC ``x`` with the plain
+    versions of the epilogues and the chains: [(each stage's chain input
+    NHWC, its chain weights)]."""
     import torch
 
     from network_interpretation_imagenet_tpu_torch.models.common import max_pool_same
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
         bottleneck_chain_plain,
     )
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import epilogue_nhwc_plain
 
     out = []
     with torch.inference_mode():
-        y = max_pool_same(plan._conv(x.permute(0, 3, 1, 2), plan.stem, True), 3, 2)
+        y = max_pool_same(plan._conv(x.permute(0, 3, 1, 2), plan.stem, epilogue_nhwc_plain), 3, 2)
         for blocks, chain in plan.stages:
-            for convs, ds in blocks:
-                t = y
-                for i, op in enumerate(convs):
-                    t = plan._conv(t, op, relu=i + 1 < len(convs))
-                y = torch.relu(t + (y if ds is None else plan._conv(y, ds, False)))
+            for block in blocks:
+                y = plan._block(y, block, epilogue_nhwc_plain)
             if chain:
                 out.append((y.permute(0, 2, 3, 1), chain))
                 y = bottleneck_chain_plain(y.permute(0, 2, 3, 1), chain).permute(0, 3, 1, 2)
@@ -4052,17 +4264,30 @@ def _free_port():
 
 def _launches():
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import epilogue_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
 
-    return {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches}
+    return {"masked_batch": masked_batch.launches, "bottleneck_chain": bottleneck_chain.launches,
+            "epilogue_nhwc": epilogue_nhwc.launches}
 
 
 def _reset_launches():
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import epilogue_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
 
     masked_batch.launches = 0
     bottleneck_chain.launches = 0
+    epilogue_nhwc.launches = 0
+
+
+def _dense_e1(where, launches):
+    """Raises unless ``launches`` (of dense Bottleneck ResNets only) hold
+    E1_PER_DENSE_FORWARD E1 launches for each 4 B2 launches."""
+    b2, e1 = launches["bottleneck_chain"], launches["epilogue_nhwc"]
+    if b2 % 4 or e1 != b2 // 4 * E1_PER_DENSE_FORWARD:
+        raise AssertionError(f"{where}: B2 {b2} and E1 {e1} launches, want "
+                             f"{E1_PER_DENSE_FORWARD} E1 a forward of 4 B2")
 
 
 def _parallel_images(seeds):
@@ -4416,6 +4641,7 @@ def parallel_phase(smi, by_path):
             raise AssertionError(f"--bo --data-parallel: {bo}")
     if not (launches["masked_batch"] > 0 and launches["bottleneck_chain"] > 0):
         raise AssertionError(f"[parallel]: B1 or B2 never launched: {launches}")
+    _dense_e1("[parallel]", launches)
     by_path["parallel"] = launches
     for rk in ranks:
         lines.append(f"rank {rk['rank']} ({rk['backend']}): " + ", ".join(
@@ -4851,9 +5077,10 @@ def parallel_train_phase(smi, by_path):
                 raise AssertionError(f"[parallel train] rank {rk['rank']}: the {axis} mesh's "
                                      f"step strays: {tp}")
     launches = {k: sum(rk["handoff_launches"][k] for rk in ranks)
-                for k in ("masked_batch", "bottleneck_chain")}
+                for k in ("masked_batch", "bottleneck_chain", "epilogue_nhwc")}
     if not (launches["masked_batch"] > 0 and launches["bottleneck_chain"] > 0):
         raise AssertionError(f"[parallel train]: B1 or B2 never launched: {launches}")
+    _dense_e1("[parallel train]", launches)
     by_path["parallel train"] = launches
     log(f"[parallel train] launches {json.dumps(launches)}; "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -5103,6 +5330,7 @@ def main() -> int:
     )
     from network_interpretation_imagenet_tpu_torch.models import create_model
     from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import bottleneck_chain
+    from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import epilogue_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.masked_batch import masked_batch
     from network_interpretation_imagenet_tpu_torch.ops.pool_nhwc import pool_nhwc
     from network_interpretation_imagenet_tpu_torch.ops.preprocess import (
@@ -5138,6 +5366,7 @@ def main() -> int:
     masked_batch.launches = 0
     bottleneck_chain.launches = 0
     pool_nhwc.launches = 0
+    epilogue_nhwc.launches = 0
     t0 = time.perf_counter()
     segments = segment_image(display, SegmentConfig())
     target, logits = engine.predict_one(normalized)
@@ -5146,7 +5375,8 @@ def main() -> int:
     iou, box = localization_score(out.heatmap, gt)
     main_s = time.perf_counter() - t0
     launches = {"masked_batch": masked_batch.launches,
-                "bottleneck_chain": bottleneck_chain.launches, "pool_nhwc": pool_nhwc.launches}
+                "bottleneck_chain": bottleneck_chain.launches, "pool_nhwc": pool_nhwc.launches,
+                "epilogue_nhwc": epilogue_nhwc.launches}
     chunks = -(-NUM_SAMPLES // MASK_BATCH)
     forwards = 1 + chunks
     log(f"[main] S={out.num_segments} width={out.width} target={target} "
@@ -5159,6 +5389,9 @@ def main() -> int:
                              f"want {4 * forwards}")
     if launches["pool_nhwc"]:
         raise AssertionError(f"P1 launched {launches['pool_nhwc']} times on ResNet-101")
+    if launches["epilogue_nhwc"] != E1_PER_DENSE_FORWARD * forwards:
+        raise AssertionError(f"E1 launched {launches['epilogue_nhwc']} times, "
+                             f"want {E1_PER_DENSE_FORWARD * forwards}")
     if not (np.isfinite(logits).all() and np.isfinite(out.heatmap).all()):
         raise AssertionError("non-finite logits or heatmap")
     if out.heatmap.shape != (224, 224) or not 0.0 <= iou <= 1.0:
@@ -5184,11 +5417,13 @@ def main() -> int:
     sd = bundle.init(SEED)
     e32 = {d: SaliencyEngine(bundle, sd, mask_batch=16, compute_dtype=torch.float32,
                              device=d) for d in ("cuda", "cpu")}
-    before = (masked_batch.launches, bottleneck_chain.launches)
+    before = (masked_batch.launches, bottleneck_chain.launches, epilogue_nhwc.launches)
     r32 = {d: e.eval_window_masks(normalized, segments, out.firsts[:16], out.width, target)
            for d, e in e32.items()}
-    if (masked_batch.launches - before[0], bottleneck_chain.launches - before[1]) != (1, 4):
-        raise AssertionError("the f32 engine on the card did not run B1 once and B2 4 times")
+    if (masked_batch.launches - before[0], bottleneck_chain.launches - before[1],
+            epilogue_nhwc.launches - before[2]) != (1, 4, E1_PER_DENSE_FORWARD):
+        raise AssertionError("the f32 engine on the card did not run B1 once, B2 4 times and "
+                             f"E1 {E1_PER_DENSE_FORWARD} times")
     with torch.inference_mode():
         l32 = {}
         for d, e in e32.items():
@@ -5260,6 +5495,7 @@ def main() -> int:
     sweep_phase(engine, smi, paths)
     zoo_phase(smi, paths)
     pool_total, pool_by_shape = pool_phase(smi)
+    e1_total, e1_by_shape = epilogue_phase(smi)
     bo_zoo_phase(normalized, seg_np, smi, paths)
     gen_small_phase(smi, paths)
     serve_phase(engine, normalized, seg_np, target, smi, paths)
@@ -5269,7 +5505,7 @@ def main() -> int:
     b2_graph_phase(small_cases, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     # P1's count is kept where counted() or [main] read it; the spawned
-    # [parallel] ranks run ResNets and report B1 and B2 only.
+    # [parallel] ranks run ResNets and report B1, B2 and E1 only.
     by_path = {name: {path: counts[name] for path, counts in paths.items() if name in counts}
                for name in launches}
 
@@ -5295,6 +5531,12 @@ def main() -> int:
          "plain_ms": pool_total["plain_ms"], "bound_ms": pool_total["bound_ms"],
          "bound_by": "bytes", "library_ms": pool_total["library_ms"],
          "by_shape": pool_by_shape},
+        {"name": "epilogue_nhwc", "route": "cuda", "source": f"{PKG}/csrc/epilogue_nhwc.cu",
+         "replaces": None, "launches": sum(by_path["epilogue_nhwc"].values()),
+         "launches_by_path": by_path["epilogue_nhwc"],
+         "bit_equal": all(r["bit_equal"] for r in e1_by_shape), "ms": e1_total["ms"],
+         "plain_ms": e1_total["plain_ms"], "bound_ms": e1_total["bound_ms"],
+         "bound_by": "bytes", "library_ms": e1_total["library_ms"], "by_shape": e1_by_shape},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -5314,4 +5556,6 @@ if __name__ == "__main__":
         sys.exit(b1_only())
     if sys.argv[1:] == ["--pool"]:
         sys.exit(pool_only())
+    if sys.argv[1:] == ["--epilogue"]:
+        sys.exit(epilogue_only())
     sys.exit(main())

@@ -9,12 +9,15 @@ architecture (post-activation, stride on the 3x3) with torchvision's
 inference plan the engine runs: BatchNorm folded into every convolution once
 when it is built, activations kept NHWC in memory (channels_last). In a
 Bottleneck net the stem and the first (projection) block of each stage are
-plain torch ops, and each stage's remaining stride-1 identity blocks are one
+eager blocks, and each stage's remaining stride-1 identity blocks are one
 ``bottleneck_chain`` call (a Wide-ResNet's too: its chains have P = 2*planes
 and C = 2*P). A BasicBlock net has no bottleneck, and no TPU kernel covers
-its blocks either: all of them are plain torch ops (cuDNN). Neither does a
-ResNeXt net's grouped 3x3 fit B2's dense GEMM (nor the TPU kernel's), so
-all of its blocks are plain torch ops too, the 3x3 a grouped convolution.
+its blocks either: all of them are eager. Neither does a ResNeXt net's
+grouped 3x3 fit B2's dense GEMM (nor the TPU kernel's), so all of its
+blocks are eager too, the 3x3 a grouped convolution. On the card an eager
+block runs each convolution in cuDNN without a bias, then its bias, the
+residual (after the block's last convolution) and ReLU as one in-place
+pass, E1 (``ops/epilogue_nhwc.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from network_interpretation_imagenet_tpu_torch.models.common import (
 from network_interpretation_imagenet_tpu_torch.ops.bottleneck_chain import (
     bottleneck_chain,
     bottleneck_chain_plain,
+)
+from network_interpretation_imagenet_tpu_torch.ops.epilogue_nhwc import (
+    epilogue_nhwc,
+    epilogue_nhwc_plain,
 )
 from network_interpretation_imagenet_tpu_torch.utils import logging as trace
 
@@ -199,18 +206,28 @@ class FoldedResNet:
     BatchNorm folded (``fold_bn``) and every weight cast to ``dtype`` on
     ``device``. The block type follows the keys: a net without ``conv3`` is a
     BasicBlock net, and one whose 3x3 weight has fewer input channels than
-    output channels is grouped (ResNeXt); both run every block as torch ops.
-    Calling it maps NHWC ``dtype`` images to f32 logits;
-    ``plain=True`` runs the chains through their plain version (the
-    comparison the card makes).
+    output channels is grouped (ResNeXt); both run every block eagerly.
+    An eager convolution keeps its bias apart from its weight, in f32. On
+    the card it runs without one, and E1 then adds the bias (and, after a
+    block's last convolution, the residual) and applies ReLU in one pass.
+    There a projection runs bias-free too: its bias is added to its block's
+    last bias when the plan is built, and no pass follows it. On the CPU the
+    library adds a bias inside the convolution, before its one rounding, so
+    there every convolution takes its own bias in ``dtype``, and torch ops
+    add the residual and apply ReLU. Calling it maps NHWC ``dtype`` images
+    to f32 logits; ``plain=True`` runs the chains and the epilogues through
+    their plain versions, on any device (the comparison the card makes).
 
     A call is traced as span ``plan.forward`` (a child of the caller's
     span, with its request id), as ``ModulePlan``'s is, with attributes
     ``batch`` (the images) and, once the net has run, ``grouped_convs``
     (the grouped convolutions launched during the call: 33 for ResNeXt-101,
     0 for a dense net; read from the process-wide counter
-    ``FoldedResNet.grouped_launches``, which ``_conv`` raises, so forwards
-    that run at once in other threads add theirs)."""
+    ``FoldedResNet.grouped_launches``, which ``_conv`` raises) and
+    ``epilogues`` (E1's launches during the call, from the process-wide
+    ``epilogue_nhwc.launches``: 100 for ResNeXt-101 and 13 for ResNet-101
+    on the card, 0 on the CPU). Forwards that run at once in other threads
+    add theirs to both."""
 
     grouped_launches = 0
 
@@ -224,26 +241,30 @@ class FoldedResNet:
             return fold_bn(w, *(_array(state_dict[f"{bn}.{k}"])
                                  for k in ("weight", "bias", "running_mean", "running_var")))
 
-        def torch_conv(conv: str, bn: str, stride: int, padding: int):
-            w, b = folded(conv, bn)
-            w = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1))))
-            # A block's 3x3 keeps its width, so its OIHW weight is [w, w / groups].
-            groups = int(w.shape[0]) // int(w.shape[1]) if conv.endswith("conv2") else 1
-            return (w.to(self.device, dtype).contiguous(memory_format=torch.channels_last),
-                    torch.from_numpy(b).to(self.device, dtype), stride, padding, groups)
-
         def matrix(w: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(w)).to(self.device, dtype)
 
         def bias(b: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(b).to(self.device, torch.float32)
 
+        def torch_conv(conv: str, bn: str, stride: int, padding: int):
+            """(OIHW weight, f32 bias, stride, padding, groups) of an eager
+            convolution."""
+            w, b = folded(conv, bn)
+            w = torch.from_numpy(np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1))))
+            # A block's 3x3 keeps its width, so its OIHW weight is [w, w / groups].
+            groups = int(w.shape[0]) // int(w.shape[1]) if conv.endswith("conv2") else 1
+            return (w.to(self.device, dtype).contiguous(memory_format=torch.channels_last),
+                    bias(b), stride, padding, groups)
+
         basic = "layer1.0.conv3.weight" not in state_dict
         first_3x3 = state_dict["layer1.0.conv2.weight"].shape
         grouped = not basic and int(first_3x3[1]) != int(first_3x3[0])
 
         def torch_block(p: str, stride: int):
-            """(convs, downsample) of block ``p``, run as torch ops."""
+            """(convs, projection, last bias) of eager block ``p``: the
+            projection None for an identity block; the last bias, f32, the
+            last convolution's plus the projection's."""
             if basic:
                 convs = (torch_conv(f"{p}.conv1", f"{p}.bn1", stride, 1),
                          torch_conv(f"{p}.conv2", f"{p}.bn2", 1, 1))
@@ -251,14 +272,15 @@ class FoldedResNet:
                 convs = (torch_conv(f"{p}.conv1", f"{p}.bn1", 1, 0),
                          torch_conv(f"{p}.conv2", f"{p}.bn2", stride, 1),
                          torch_conv(f"{p}.conv3", f"{p}.bn3", 1, 0))
-            ds = (torch_conv(f"{p}.downsample.0", f"{p}.downsample.1", stride, 0)
-                  if f"{p}.downsample.0.weight" in state_dict else None)
-            return convs, ds
+            if f"{p}.downsample.0.weight" not in state_dict:
+                return convs, None, convs[-1][1]
+            ds = torch_conv(f"{p}.downsample.0", f"{p}.downsample.1", stride, 0)
+            return convs, ds, convs[-1][1] + ds[1]
 
         self.stem = torch_conv("conv1", "bn1", 2, 3)
-        # Per stage: the blocks run as torch ops (all of a BasicBlock or a
-        # ResNeXt net's, the first of a dense Bottleneck net's), then the B2
-        # chain of the rest.
+        # Per stage: the eager blocks (all of a BasicBlock or a ResNeXt
+        # net's, the first of a dense Bottleneck net's), then the B2 chain of
+        # the rest.
         self.stages = []
         for s, num_blocks in enumerate(stage_sizes, start=1):
             stride = 1 if s == 1 else 2
@@ -278,31 +300,62 @@ class FoldedResNet:
         self.fc_b = torch.from_numpy(_array(state_dict["fc.bias"])).to(self.device)
 
     @staticmethod
-    def _conv(x, op, relu: bool):
+    def _conv(x, op, epilogue, residual=None, bias=None):
+        """Convolution ``op`` of ``x``, then its bias (``bias`` where given,
+        else its own), ``residual`` where given, and ReLU: through
+        ``epilogue``, in one pass in place on the bias-free output, or, with
+        ``epilogue`` None (the CPU's route), by the convolution itself in
+        ``x``'s dtype and then torch ops."""
         w, b, stride, padding, groups = op
-        y = F.conv2d(x, w, b, stride, padding, groups=groups)
+        fused = epilogue is None
+        y = F.conv2d(x, w, b.to(x.dtype) if fused else None, stride, padding, groups=groups)
         if groups > 1:
             FoldedResNet.grouped_launches += 1
-        return torch.relu(y) if relu else y
+        if fused:
+            return torch.relu(y if residual is None else y + residual)
+        return epilogue(y, b if bias is None else bias, residual)
+
+    @staticmethod
+    def _block(y, block, epilogue):
+        """Eager block ``(convs, projection, last bias)`` on ``y``; the last
+        convolution's epilogue adds the identity or the projection, which
+        takes its bias inside the convolution on the CPU's route and none on
+        an epilogue's (the last bias holds it)."""
+        convs, ds, last_bias = block
+        out = y
+        for op in convs[:-1]:
+            out = FoldedResNet._conv(out, op, epilogue)
+        identity = y
+        if ds is not None:
+            w, b, stride, padding, _ = ds
+            identity = F.conv2d(y, w, b.to(y.dtype) if epilogue is None else None, stride, padding)
+        return FoldedResNet._conv(out, convs[-1], epilogue, identity, last_bias)
+
+    @staticmethod
+    def _epilogue(device: torch.device, plain: bool):
+        """The epilogue route of a forward on ``device``: the plain twin for
+        ``plain``, None (the convolutions' own bias) on the CPU, else E1."""
+        if plain:
+            return epilogue_nhwc_plain
+        return None if device.type == "cpu" else epilogue_nhwc
 
     def __call__(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         with trace.span("plan.forward", batch=x.shape[0]) as open_span:
-            grouped = FoldedResNet.grouped_launches
+            grouped, epilogues = FoldedResNet.grouped_launches, epilogue_nhwc.launches
             logits = self._forward(x, plain)
             if open_span is not None:
-                open_span.annotate(grouped_convs=FoldedResNet.grouped_launches - grouped)
+                open_span.annotate(grouped_convs=FoldedResNet.grouped_launches - grouped,
+                                   epilogues=epilogue_nhwc.launches - epilogues)
             return logits
 
     def _forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         chain_fn = bottleneck_chain_plain if plain else bottleneck_chain
+        epilogue = self._epilogue(x.device, plain)
         y = x.permute(0, 3, 1, 2)  # NHWC memory, NCHW view: channels_last
-        y = max_pool_same(self._conv(y, self.stem, True), 3, 2)
+        y = max_pool_same(self._conv(y, self.stem, epilogue), 3, 2)
         for blocks, chain in self.stages:
-            for convs, ds in blocks:
-                out = y
-                for i, op in enumerate(convs):
-                    out = self._conv(out, op, relu=i + 1 < len(convs))
-                y = torch.relu(out + (y if ds is None else self._conv(y, ds, False)))
+            for block in blocks:
+                y = self._block(y, block, epilogue)
             if chain:
                 if not y.is_contiguous(memory_format=torch.channels_last):
                     raise RuntimeError("activations left channels_last before a chain")

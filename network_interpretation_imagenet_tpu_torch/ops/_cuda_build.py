@@ -161,10 +161,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+    """The address of ``device``'s current CUDA stream (read without making
+    a ``torch.cuda.Stream``: a launch on the host's path reads it every
+    call)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t) -> ctypes.c_void_p:
