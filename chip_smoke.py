@@ -7,6 +7,7 @@
     python3 chip_smoke.py --b1                # only B1's checks and timings (see b1_only)
     python3 chip_smoke.py --pool              # only the build and [pool] (see pool_only)
     python3 chip_smoke.py --epilogue          # only the build and [epilogue] (see epilogue_only)
+    python3 chip_smoke.py --zoo-grad          # only the build and [zoo grad] (see zoo_grad_only)
 
 Drives network_interpretation_imagenet_tpu_torch's main path at full width
 (ResNet-101, 224x224, bf16, seeded random weights), every other classifier
@@ -161,14 +162,22 @@ kernel against its plain PyTorch version on the card:
      weights, each on its own bf16 engine (its eval-mode module, no B2):
      the MNIST CNN (28x28x1), the CIFAR ResNet-56 and DenseNet-BC-100 k=12
      (cifar10+, 32x32), VGG-16-BN, AlexNet, SqueezeNet 1.1, DenseNet-121,
-     GoogLeNet, MobileNetV2, ShuffleNetV2 x1.0, MNASNet 1.0 (224x224) and
-     Inception-v3 (299x299). Per arch: the engine's bf16 plan against the
+     DenseNet-201, GoogLeNet, MobileNetV2, ShuffleNetV2 x1.0, MNASNet 1.0
+     (224x224) and Inception-v3 (299x299). Per arch: the engine's bf16 plan against the
      plain module in f32 on 32 window-masked images (ZOO_TOL of max |logit|)
      and the f32 module on the card against the CPU on 8 (ZOO_F32_TOL);
      B1 bit for bit against its plain version at each of the window path's
      chunks, on the arch's own segments and starts; 1,024 window masks (B1
      4, B2 0) and 1,024 knockouts at M=1 (B1 0, B2 0), with their evals/s
-     (median, fastest and slowest of 5-100 warm calls);
+     (median, fastest and slowest of 5-100 warm calls); then [zoo grad]:
+     the f32 input gradient of DenseNet-201, DenseNet-121, DenseNet-BC-100
+     and ResNet-56 (ZOO_GRAD) on the card and on the CPU against the CPU's
+     float64, on ZOO_GRAD_BATCH noisy copies of the arch's synthetic image,
+     of the logits weighted by a seeded random matrix, BatchNorm on the
+     batch's statistics (the card's relative L2 error at most ZOO_GRAD_RATIO
+     times the CPU's f32 one, or ZOO_F32_TOL): their backwards run through
+     the library's channels_last average pools (DenseNet's transitions and
+     head, the CIFAR ResNet's shortcuts and head);
  22. [bo zoo]: bo_window_saliency at DenseNet-121 224 bf16 from an empty
      runner cache: the first call eager (B1 11, B2 0), the second captures
      and replays (B1 11, B2 0), the third only replays (B1 0, B2 0); the
@@ -427,11 +436,17 @@ B1_SLICE_KS = (1, 3, 7, MASK_BATCH, 1000, 1024)
 ZOO = (("mnist_cnn", "mnist", {}), ("resnet", "cifar10+", {"depth": 56}),
        ("densenet", "cifar10+", {"depth": 100}), ("vgg16_bn", "imagenet", {}),
        ("alexnet", "imagenet", {}), ("squeezenet1_1", "imagenet", {}),
-       ("densenet121", "imagenet", {}), ("googlenet", "imagenet", {}),
+       ("densenet121", "imagenet", {}), ("densenet201", "imagenet", {}),
+       ("googlenet", "imagenet", {}),
        ("mobilenet_v2", "imagenet", {}), ("shufflenet_v2_x1_0", "imagenet", {}),
        ("mnasnet1_0", "imagenet", {}), ("inception_v3", "imagenet", {}))
 ZOO_TOL = 0.05               # a bf16 plan vs the plain f32 module: x max |logit|, as [main]
 ZOO_F32_TOL = 1e-4           # the f32 module, card vs CPU: x max |logit|, as [main]'s f32 engine
+# [zoo grad]: the nets whose input gradient runs through the library's average pools.
+ZOO_GRAD = (("densenet201", "imagenet", {}), ("densenet121", "imagenet", {}),
+            ("densenet", "cifar10+", {"depth": 100}), ("resnet", "cifar10+", {"depth": 56}))
+ZOO_GRAD_BATCH = 4
+ZOO_GRAD_RATIO = 10.0        # [zoo grad]: the card's f32 error over the CPU's, both against float64
 PKG = "network_interpretation_imagenet_tpu_torch"
 POOL_FORWARD_MS = 2.5        # [pool]: the 13 pools of a forward of 256, bf16 (library's: ~16.7)
 EPILOGUE_FORWARD_MS = 36.0   # [epilogue]: a ResNeXt-101 forward of 256, bf16 (59.5 before E1)
@@ -3237,6 +3252,120 @@ def zoo_phase(smi, by_path):
     log(f"[zoo] {smi}: evals/s (median, range, calls) " + json.dumps(rates))
 
 
+def _batch_statistics(bundle, x):
+    """``bundle.init(SEED)`` with every BatchNorm's running statistics set to
+    its batch statistics on ``x`` (a copy of the module in training mode,
+    one forward on the CPU), so that activations are normalized, as a
+    trained net's are."""
+    import copy
+
+    import torch
+
+    net = copy.deepcopy(bundle.module)
+    net.load_state_dict(bundle.init(SEED))
+    for m in net.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None   # a cumulative average: one batch's statistics
+    net.train()
+    with torch.no_grad():
+        net(x)
+    return {k: t.detach().clone() for k, t in net.state_dict().items()}
+
+
+def zoo_grad_phase(smi):
+    """[zoo grad] (see the module docstring, 21): per arch of ZOO_GRAD, the
+    f32 input gradient on the card (``bundle.logits``) and on the CPU, each
+    against the CPU's float64 gradient, in relative L2 error. Even with
+    BatchNorm on the batch's statistics an f32 gradient of these nets is
+    off float64's by 0.2-0.7 % on the CPU (ReLU kinks that rounding flips),
+    and two right f32 routes differ up to 3.5 times in that error (the CPU's
+    pools channels_last or on NCHW copies, DenseNet-121), so the card's
+    error may be at most ZOO_GRAD_RATIO times the CPU's, or ZOO_F32_TOL
+    where that is larger: a wrong backward (the library's channels_last
+    average pool backward has read 0.7-2.0 off at 3x3 windows on the card)
+    errs by tens of per cent. Where the card's is not, the card runs again with every average
+    pool on an NCHW-contiguous copy of its input (the library's NCHW
+    backward) and logs that error beside it; after every arch, raises
+    naming those that failed. Returns {arch: (card err, CPU err)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from network_interpretation_imagenet_tpu_torch.models import create_model
+    from network_interpretation_imagenet_tpu_torch.models import densenet, resnet_cifar
+
+    def nchw_pool(x, window):
+        return F.avg_pool2d(x.contiguous(), window, window)
+
+    out, failed = {}, []
+    for arch, dataset, kw in ZOO_GRAD:
+        bundle = create_model(arch, dataset, **kw)
+        normalized, _ = zoo_image(dataset, bundle.input_size)
+        g = torch.Generator().manual_seed(SEED)
+        x = torch.from_numpy(normalized)[None] + 0.1 * torch.randn(
+            ZOO_GRAD_BATCH, *normalized.shape, generator=g)
+        w = torch.randn(ZOO_GRAD_BATCH, bundle.num_classes, generator=g)
+        sd = _batch_statistics(bundle, x)
+
+        def grad(device, dtype=torch.float32):
+            xi = x.to(device, dtype, copy=True).requires_grad_(True)
+            if dtype == torch.float32:
+                logits = bundle.logits(sd, xi)
+            else:
+                state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in sd.items()}
+                logits = torch.func.functional_call(bundle.module.eval(), state, (xi,))
+            (logits * w.to(device, dtype)).sum().backward()
+            return xi.grad.cpu().double()
+
+        exact = grad("cpu", torch.float64)
+
+        def err(a):
+            return ((a - exact).norm() / exact.norm()).item()
+
+        card, cpu = grad("cuda"), grad("cpu")
+        e_card, e_cpu = err(card), err(cpu)
+        limit = max(ZOO_F32_TOL, ZOO_GRAD_RATIO * e_cpu)
+        out[arch] = (e_card, e_cpu)
+        note = ""
+        if not (torch.isfinite(card).all() and e_card <= limit):
+            failed.append(arch)
+            saved = densenet.avg_pool, resnet_cifar.avg_pool
+            densenet.avg_pool = resnet_cifar.avg_pool = nchw_pool
+            try:
+                e_nchw = err(grad("cuda"))
+            finally:
+                densenet.avg_pool, resnet_cifar.avg_pool = saved
+            note = f"; FAILS; with the pools on NCHW copies the card's err is {e_nchw:.3g}"
+        scale = exact.abs().max().item()
+        log(f"[zoo grad] {smi}: {arch} ({dataset}, {ZOO_GRAD_BATCH} x "
+            f"{'x'.join(map(str, normalized.shape))}, BatchNorm on the batch's statistics): input "
+            f"gradient against the CPU's float64, relative L2 err card f32 {e_card:.3g}, CPU f32 "
+            f"{e_cpu:.3g} (limit {limit:.3g}); max |err| card {(card - exact).abs().max().item():.3g}"
+            f", CPU {(cpu - exact).abs().max().item():.3g} of max |gradient| {scale:.4g}" + note)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"[zoo grad] the card's input gradient beyond {ZOO_GRAD_RATIO:g} "
+                             f"times the CPU's f32 error: {', '.join(failed)}")
+    return out
+
+
+def zoo_grad_only() -> int:
+    """``--zoo-grad``: only the build and [zoo grad] (1., 2., 21.'s
+    gradients). Prints no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    _, smi = device_and_build()
+    zoo_grad_phase(smi)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
 def zoo_rate(fn):
     """evals/s of ``fn`` (one call evaluates NUM_SAMPLES masks and waits for
     its results on the host): the median over as many warm calls as fill
@@ -5494,6 +5623,7 @@ def main() -> int:
     slic_phase(display, smi)
     sweep_phase(engine, smi, paths)
     zoo_phase(smi, paths)
+    zoo_grad_phase(smi)
     pool_total, pool_by_shape = pool_phase(smi)
     e1_total, e1_by_shape = epilogue_phase(smi)
     bo_zoo_phase(normalized, seg_np, smi, paths)
@@ -5558,4 +5688,6 @@ if __name__ == "__main__":
         sys.exit(pool_only())
     if sys.argv[1:] == ["--epilogue"]:
         sys.exit(epilogue_only())
+    if sys.argv[1:] == ["--zoo-grad"]:
+        sys.exit(zoo_grad_only())
     sys.exit(main())

@@ -13,6 +13,10 @@ State-dict keys are torchvision's current ones (``features.conv0``,
 ``features.denseblock1.denselayer1.norm1``, ``features.transition1.conv``,
 ``features.norm5``, ``classifier``); ``utils.convert`` maps the reference
 era's dotted ``norm.1`` / ``conv.1`` onto them.
+
+``DenseLayer.concat_bytes`` is a process-wide counter of the bytes the dense
+layers' concatenations write (each output's size, from its shape on the
+host; no sync), which ``models.ModulePlan``'s span reads.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ def torch_name(path) -> str:
 
 
 class DenseLayer(nn.Module):
+    concat_bytes = 0   # bytes every dense layer's torch.cat has written, process-wide
+
     def __init__(self, inp: int, growth_rate: int, bn_size: int, drop_rate: float = 0.0) -> None:
         super().__init__()
         self.norm1 = BatchNorm2d(inp)
@@ -63,7 +69,9 @@ class DenseLayer(nn.Module):
         y = self.conv1(torch.relu(self.norm1(x)))
         if self.bottleneck:
             y = self.conv2(torch.relu(self.norm2(y)))
-        return torch.cat([x, self.drop(y)], dim=1)
+        out = torch.cat([x, self.drop(y)], dim=1)
+        DenseLayer.concat_bytes += out.numel() * out.element_size()
+        return out
 
 
 class Transition(nn.Module):

@@ -220,14 +220,13 @@ class FoldedResNet:
 
     A call is traced as span ``plan.forward`` (a child of the caller's
     span, with its request id), as ``ModulePlan``'s is, with attributes
-    ``batch`` (the images) and, once the net has run, ``grouped_convs``
-    (the grouped convolutions launched during the call: 33 for ResNeXt-101,
-    0 for a dense net; read from the process-wide counter
-    ``FoldedResNet.grouped_launches``, which ``_conv`` raises) and
-    ``epilogues`` (E1's launches during the call, from the process-wide
-    ``epilogue_nhwc.launches``: 100 for ResNeXt-101 and 13 for ResNet-101
-    on the card, 0 on the CPU). Forwards that run at once in other threads
-    add theirs to both."""
+    ``batch`` (the images) and, once the net has run, the rise over the
+    call of two process-wide counters (``trace.counted_call``, so forwards
+    that run at once in other threads add theirs): ``grouped_convs`` (the
+    grouped convolutions launched, ``FoldedResNet.grouped_launches``, which
+    ``_conv`` raises: 33 for ResNeXt-101, 0 for a dense net) and
+    ``epilogues`` (E1's launches, ``epilogue_nhwc.launches``: 100 for
+    ResNeXt-101 and 13 for ResNet-101 on the card, 0 on the CPU)."""
 
     grouped_launches = 0
 
@@ -340,13 +339,8 @@ class FoldedResNet:
         return None if device.type == "cpu" else epilogue_nhwc
 
     def __call__(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        with trace.span("plan.forward", batch=x.shape[0]) as open_span:
-            grouped, epilogues = FoldedResNet.grouped_launches, epilogue_nhwc.launches
-            logits = self._forward(x, plain)
-            if open_span is not None:
-                open_span.annotate(grouped_convs=FoldedResNet.grouped_launches - grouped,
-                                   epilogues=epilogue_nhwc.launches - epilogues)
-            return logits
+        return trace.counted_call("plan.forward", _FOLDED_COUNTERS, self._forward, x, plain,
+                                  batch=x.shape[0])
 
     def _forward(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         chain_fn = bottleneck_chain_plain if plain else bottleneck_chain
@@ -361,3 +355,7 @@ class FoldedResNet:
                     raise RuntimeError("activations left channels_last before a chain")
                 y = chain_fn(y.permute(0, 2, 3, 1), chain).permute(0, 3, 1, 2)
         return torch.matmul(y.float().mean(dim=(2, 3)), self.fc_w) + self.fc_b
+
+
+_FOLDED_COUNTERS = {"grouped_convs": lambda: FoldedResNet.grouped_launches,
+                    "epilogues": lambda: epilogue_nhwc.launches}

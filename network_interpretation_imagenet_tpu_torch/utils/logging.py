@@ -24,7 +24,7 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch.autograd.profiler as _autograd_profiler
 
@@ -150,6 +150,23 @@ class Tracer:
 TRACER = Tracer()
 span, spans, clear = TRACER.span, TRACER.spans, TRACER.clear
 enable, disable = TRACER.enable, TRACER.disable
+
+
+def counted_call(name: str, counters: Dict[str, Callable[[], int]], fn: Callable, *args,
+                 **attrs):
+    """``fn(*args)`` inside span ``name`` with ``attrs``. Once ``fn``
+    returns, the span gains one attribute per entry of ``counters`` (its
+    name -> a reader of a process-wide counter): the counter's rise over
+    the call, so calls that run at once in other threads add theirs. A call
+    that raises keeps ``attrs`` alone. While nothing records, the counters
+    are not read."""
+    with span(name, **attrs) as open_span:
+        if open_span is None:
+            return fn(*args)
+        before = [read() for read in counters.values()]
+        out = fn(*args)
+        open_span.annotate(**{k: read() - b for (k, read), b in zip(counters.items(), before)})
+        return out
 
 
 class PhaseLogger:

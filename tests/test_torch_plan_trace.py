@@ -1,7 +1,8 @@
 """The module plan's span (``models.ModulePlan``, the engine's forward for
 every arch but the ImageNet ResNets): one ``plan.forward`` a call, under the
-caller's span and request id, with the batch and the pool kernel's launches
-(0 on the CPU), and nothing recorded or changed while the tracer is off. On
+caller's span and request id, with the batch, the pool kernel's launches
+(0 on the CPU) and the dense layers' concatenated bytes (0 in a net without
+dense layers), and nothing recorded or changed while the tracer is off. On
 the CPU, Inception-v3 at 75^2 and small nets of the zoo."""
 
 import numpy as np
@@ -43,8 +44,8 @@ def test_one_span_a_forward_with_batch(arch, side):
         plan(_images(side, batch=1))
     first, second = trace.spans()
     assert [s.name for s in (first, second)] == ["plan.forward"] * 2
-    assert first.attrs == {"batch": 3, "pool_launches": 0}
-    assert second.attrs == {"batch": 1, "pool_launches": 0}
+    assert first.attrs == {"batch": 3, "pool_launches": 0, "concat_bytes": 0}
+    assert second.attrs == {"batch": 1, "pool_launches": 0, "concat_bytes": 0}
     assert first.parent is None and first.rid == first.id and second.rid == second.id
     assert first.start_ns <= first.end_ns <= second.start_ns <= second.end_ns
 
